@@ -11,7 +11,15 @@ failover to the robust program. Phases (each prints its seconds):
 3. the benchmark device and solver (host meshing, stencils, multigrid);
 4. each kernel against its plain PyTorch version at the benchmark grid in
    float32 (raw and factored link phases) and on a small grid in float64,
-   with CUDA-event timings (median of 50 launches);
+   on the real stencil and on a periodic one (every edge live, so edge
+   tiles must read the wrapped halo), the ``ok`` flag through a
+   fail/pass/fail/pass sequence, and CUDA-event timings: device ms per
+   call over 200 back-to-back calls (warm L2, and with L2 flushed before
+   each call), the paced ms of one call from an idle stream, the plain
+   version's ms, and the bound from shapes with the share of it reached,
+   beside two floors timed the same way: a fill of one plane (the launch
+   floor) and a copy of 7 planes into 7 (the same ~5.5 MB as a factored
+   kernel call, streamed by one library kernel);
 5. a small-input reference check: a float64 chunk on the card against the
    same solver on the CPU (plain versions);
 6. the main path: ``TDGLSolver(..., torch_device="cuda")``,
@@ -19,7 +27,8 @@ failover to the robust program. Phases (each prints its seconds):
    launch counters reset just before and read just after;
 7. where a step's time goes, from the main path's final state: wall time,
    torch ops and device kernel time per step (``torch.profiler``), for
-   the fast and the robust program.
+   the fast and the robust program, and the device records of one psi
+   wrapper call (one kernel, no fill or compare).
 
 The last two stdout lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py`` (one
@@ -39,6 +48,17 @@ import time
 # float64 1e-12 relative.
 F32_TOL = 3e-5
 F64_TOL = 1e-12
+
+# The bound from shapes: an NVIDIA H100 SXM's published HBM rate and
+# float32 peak outside the tensor cores (the operations of both kernels
+# are float32 adds, multiplies and a few sqrt/cos/sin, no matrix product).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per grid site, counted from csrc/*.cu (each add, multiply,
+# divide, sqrt, cos or sin is one): the psi update 139 raw + 36 for
+# rebuilding the 6 links from the factored vectors; the RHS 50 raw + 18.
+OPS_PER_SITE = {"fused_psi_update": {"raw": 139, "factored": 175},
+                "fused_poisson_rhs": {"raw": 50, "factored": 68}}
 
 
 def log(msg: str) -> None:
@@ -75,42 +95,119 @@ def bench_device(pkg, target_sites: int = 50_000):
     return device
 
 
-def cuda_times(fn, n: int = 50, warmup: int = 5):
-    """Medians over ``n`` runs of one ``fn()`` call, in ms, from CUDA events.
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per ms, from CUDA events."""
+    import torch
 
-    ``device``: the call's kernels run back to back, because the stream is
-    held by a ~5 ms device-side sleep while the host queues them — the
-    device time of the call. ``paced``: the same call from an idle stream,
-    so host dispatch gaps between its kernels count — what a host-bound
-    caller pays.
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def queued_ms(fn, n: int, cycles_per_ms: float, flush=None,
+              repeats: int = 1):
+    """Device ms per ``fn()`` call over ``n`` back-to-back calls (the
+    median of ``repeats`` such runs).
+
+    The calls are queued behind a device-side sleep that outlasts the
+    host's enqueueing (checked: the start event must still be pending when
+    the last call is queued; else the sleep grows and the run repeats), so
+    host dispatch never starves the stream. CUDA's launch queue holds
+    about a thousand entries, so a call of many kernels (a plain
+    version) is timed with a small ``n`` and several ``repeats``. Without
+    ``flush``: CUDA events around the whole run, divided by ``n`` (inputs
+    warm in L2). With ``flush`` (a large tensor), it is zeroed before each
+    call, evicting L2, and only the calls' own event intervals are summed
+    (cold L2).
     """
     import torch
 
-    for _ in range(warmup):
+    for _ in range(3):
         fn()
-    times = {"device": [], "paced": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        if flush is not None:
+            flush.zero_()
+        fn()
+    hold_ms = 2.0 * (time.perf_counter() - t0) / 5 * 1e3 * n + 2.0
+    torch.cuda.synchronize()
+    runs = []
+    while len(runs) < repeats:
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(2 * n if flush is not None else 2)]
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        if flush is None:
+            events[0].record()
+            for _ in range(n):
+                fn()
+            events[1].record()
+        else:
+            for i in range(n):
+                flush.zero_()
+                events[2 * i].record()
+                fn()
+                events[2 * i + 1].record()
+        queued = not events[0].query()
+        events[-1].synchronize()
+        if queued:
+            runs.append(sum(events[i].elapsed_time(events[i + 1])
+                            for i in range(0, len(events), 2)) / n)
+        elif hold_ms > 5_000:
+            raise RuntimeError("the host could not queue the calls ahead"
+                               " of the device")
+        else:
+            hold_ms *= 4
+    return statistics.median(runs)
+
+
+def paced_ms(fn, n: int = 50):
+    """Median ms of one ``fn()`` call from an idle stream (CUDA events):
+    host dispatch gaps between its kernels count — what a host-bound
+    caller pays."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
     for _ in range(n):
-        for mode in times:
-            torch.cuda.synchronize()
-            if mode == "device":
-                torch.cuda._sleep(10_000_000)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times[mode].append(start.elapsed_time(end))
-    return {mode: statistics.median(t) for mode, t in times.items()}
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
-def random_inputs(solver, seed: int):
-    """Seeded psi (|psi| <= 1), mu and dA/dt on the solver's grid."""
+def bound_ms(name: str, form: str, inputs, outputs):
+    """The least time for one call: each input read once and each output
+    written once at the HBM rate, against the operations at the float32
+    peak. Returns ``(ms, "bytes" or "operations")``."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs)
+    sites = outputs[0].numel()
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = OPS_PER_SITE[name][form] * sites / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def random_inputs(solver, seed: int, sten=None):
+    """Seeded psi (|psi| <= 1), mu and dA/dt on the grid of ``sten``
+    (host arrays; default: the solver's), zero off its valid sites."""
     import numpy as np
     import torch
 
     shape = solver.maps.shape
-    valid = np.asarray(solver.host_sten.valid)
+    sten = solver.host_sten if sten is None else sten
+    valid = np.asarray(sten.valid)
     rng = np.random.default_rng(seed)
     amp = rng.uniform(0.0, 1.0, shape)
     phase = rng.uniform(-np.pi, np.pi, shape)
@@ -124,33 +221,44 @@ def random_inputs(solver, seed: int):
         mu=t(rng.normal(size=shape) * valid),
         eps=t(np.ones(shape) * valid),
         dA=t(rng.normal(size=(3,) + shape) * 0.05
-             * np.asarray(solver.host_sten.edge_valid)),
+             * np.asarray(sten.edge_valid)),
     )
 
 
-def check_kernels(solver, state, f64: bool, timed: bool):
+def check_kernels(solver, state, f64: bool, periodic: bool = False):
     """Each kernel vs its plain version on the same inputs, in both link
-    forms. Returns ``{kernel: {form: {err[, ms, plain_ms, paced_ms,
-    plain_paced_ms]}}}``."""
+    forms, on the solver's stencil or (``periodic``) on
+    ``testing.periodic_stencil`` of it. Asserts the tolerances and
+    returns ``{kernel: {form: max |err|}}`` and, per form, the bound
+    operands and inputs of the check."""
     import torch
 
+    from tdgl_tpu_torch import convert
     from tdgl_tpu_torch.models import gtdgl_stencil as gs
     from tdgl_tpu_torch.ops import step_kernels as sk
+    from tdgl_tpu_torch.testing import periodic_stencil
 
-    x = random_inputs(solver, seed=7)
+    host = solver.host_sten
+    if periodic:
+        host = periodic_stencil(host, seed=5)
+    sten = convert.stencil_to_torch(host, solver.torch_device)
+    x = random_inputs(solver, seed=7, sten=host)
+    neumann = (x["mu"] * 0.1 if periodic else state.neumann_term)
     dt = torch.tensor(1e-2, dtype=solver.torch_dtype,
                       device=solver.torch_device)
-    g, u, sten = solver.cfg.gamma, solver.cfg.u, solver.sten
+    g, u = solver.cfg.gamma, solver.cfg.u
     links = {"raw": gs.edge_link_phases(sten, state.A_applied),
              "factored": gs.factor_link_phases(sten, state.A_applied)}
-    out = {"fused_psi_update": {}, "fused_poisson_rhs": {}}
+    errs = {"fused_psi_update": {}, "fused_poisson_rhs": {}}
+    cases = {}
     for form, U in links.items():
-        psi_args = (g, u, sten, U, x["pr"], x["pi"], x["mu"], x["eps"], dt)
-        rhs_args = (sten, U, x["pr"], x["pi"], x["dA"], state.neumann_term)
-        got = sk.fused_psi_update(*psi_args)
-        ref = sk.plain_psi_update(*psi_args)
-        rhs = sk.fused_poisson_rhs(*rhs_args)
-        rhs_ref = sk.plain_poisson_rhs(*rhs_args)
+        ops = sk.StepOperands(sten, U, x["dA"], neumann)
+        psi_in = (x["pr"], x["pi"], x["mu"], x["eps"], dt)
+        got = ops.psi_update(g, u, *psi_in)
+        ref = sk.plain_psi_update(g, u, sten, U, *psi_in)
+        rhs = ops.poisson_rhs(x["pr"], x["pi"])
+        rhs_ref = sk.plain_poisson_rhs(sten, U, x["pr"], x["pi"], x["dA"],
+                                       neumann)
         torch.cuda.synchronize()
         psi_err = max((a - b).abs().max().item()
                       for a, b in zip(got[:3], ref[:3]))
@@ -164,28 +272,103 @@ def check_kernels(solver, state, f64: bool, timed: bool):
         else:
             psi_pass = psi_err < F32_TOL
             rhs_pass = rhs_err < F32_TOL * rhs_scale
-        dtype = "float64" if f64 else "float32"
-        log(f"  {dtype} {form:8s} psi max|err| {psi_err:.3e} (ok agrees:"
+        label = (f"{'float64' if f64 else 'float32'}"
+                 f" {'periodic' if periodic else 'real'} {form}")
+        log(f"  {label:25s} psi max|err| {psi_err:.3e} (ok agrees:"
             f" {ok_agrees}); rhs max|err| {rhs_err:.3e} (scale"
             f" {rhs_scale:.3e})")
-        assert ok_agrees, f"psi kernel ok flag disagrees ({dtype}, {form})"
-        assert psi_pass, f"psi kernel disagrees ({dtype}, {form})"
-        assert rhs_pass, f"rhs kernel disagrees ({dtype}, {form})"
+        assert ok_agrees, f"psi kernel ok flag disagrees ({label})"
+        assert psi_pass, f"psi kernel disagrees ({label})"
+        assert rhs_pass, f"rhs kernel disagrees ({label})"
+        errs["fused_psi_update"][form] = psi_err
+        errs["fused_poisson_rhs"][form] = rhs_err
+        cases[form] = dict(ops=ops, sten=sten, U=U, x=x, dt=dt,
+                           neumann=neumann)
+    return errs, cases
+
+
+def check_flag_sequence(solver, case):
+    """``ok`` through fail, pass, fail, pass calls of one bound operand
+    set (a huge dt and mu fail; a tiny dt passes): each agrees with the
+    plain version, so the kernel's flag word resets between launches."""
+    import torch
+
+    from tdgl_tpu_torch.ops import step_kernels as sk
+
+    ops, x = case["ops"], case["x"]
+    g, u = solver.cfg.gamma, solver.cfg.u
+    seen = []
+    for dt, mu_scale in ((50.0, 40.0), (1e-5, 1.0)) * 2:
+        args = (x["pr"], x["pi"], mu_scale * x["mu"], x["eps"],
+                torch.tensor(dt, dtype=solver.torch_dtype,
+                             device=solver.torch_device))
+        seen.append((bool(ops.psi_update(g, u, *args)[3]),
+                     bool(sk.plain_psi_update(g, u, ops.sten, ops.U,
+                                              *args)[3])))
+    log(f"  ok flag sequence (kernel, plain): {seen}")
+    assert seen == [(False, False), (True, True)] * 2, seen
+
+
+def time_kernels(solver, cases, cycles_per_ms: float):
+    """Device, cold-L2, paced and plain ms of each kernel call in each
+    link form, with its bound from shapes and the share of it reached."""
+    import torch
+
+    from tdgl_tpu_torch.ops import step_kernels as sk
+
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32,
+                        device="cuda")
+    plane = cases["factored"]["x"]["pr"]
+    src = torch.randn((7,) + tuple(plane.shape), device="cuda")
+    dst = torch.empty_like(src)
+    floors = (("launch floor: fill of one plane", plane.clone().zero_),
+              ("streaming floor: copy of 7 planes into 7",
+               lambda: dst.copy_(src)))
+    for name, fn in floors:
+        warm = queued_ms(fn, 200, cycles_per_ms)
+        cold = queued_ms(fn, 200, cycles_per_ms, flush=flush)
+        log(f"  {name}: device {warm:.5f} ms (cold L2 {cold:.5f})")
+    g, u = solver.cfg.gamma, solver.cfg.u
+    out = {"fused_psi_update": {}, "fused_poisson_rhs": {}}
+    for form, c in cases.items():
+        ops, x, dt = c["ops"], c["x"], c["dt"]
+        psi_in = (x["pr"], x["pi"], x["mu"], x["eps"], dt)
+        # The link operands the kernels read: the four factored vectors,
+        # or the raw form's ur and ui planes (not its pre-shifted views).
+        links = (list(c["U"]) if form == "factored"
+                 else [c["U"].ur, c["U"].ui])
+        sten = c["sten"]
         calls = {
-            "fused_psi_update": (psi_err, lambda: sk.fused_psi_update(
-                *psi_args), lambda: sk.plain_psi_update(*psi_args)),
-            "fused_poisson_rhs": (rhs_err, lambda: sk.fused_poisson_rhs(
-                *rhs_args), lambda: sk.plain_poisson_rhs(*rhs_args)),
+            "fused_psi_update": (
+                lambda: ops.psi_update(g, u, *psi_in),
+                lambda: sk.plain_psi_update(g, u, sten, c["U"], *psi_in),
+                list(psi_in) + [sten.w, sten.sym_diag, sten.inv_area,
+                                sten.fixed_mask, sten.valid] + links,
+                ops.psi_update(g, u, *psi_in)),
+            "fused_poisson_rhs": (
+                lambda: ops.poisson_rhs(x["pr"], x["pi"]),
+                lambda: sk.plain_poisson_rhs(sten, c["U"], x["pr"], x["pi"],
+                                             x["dA"], c["neumann"]),
+                [x["pr"], x["pi"], sten.inv_len, sten.dual, x["dA"],
+                 sten.inv_area, c["neumann"]] + links,
+                [ops.poisson_rhs(x["pr"], x["pi"])]),
         }
-        for name, (err, kernel, plain) in calls.items():
-            rec = dict(err=err)
-            if timed:
-                k, p = cuda_times(kernel), cuda_times(plain)
-                rec.update(ms=k["device"], plain_ms=p["device"],
-                           paced_ms=k["paced"], plain_paced_ms=p["paced"])
-                log(f"  {dtype} {form:8s} {name}: device {k['device']:.4f}"
-                    f" ms (plain {p['device']:.4f} ms); paced"
-                    f" {k['paced']:.4f} ms (plain {p['paced']:.4f} ms)")
+        for name, (kernel, plain, ins, outs) in calls.items():
+            bound, by = bound_ms(name, form, ins, list(outs))
+            rec = dict(ms=queued_ms(kernel, 200, cycles_per_ms),
+                       cold_ms=queued_ms(kernel, 200, cycles_per_ms,
+                                         flush=flush),
+                       paced_ms=paced_ms(kernel),
+                       plain_ms=queued_ms(plain, 1, cycles_per_ms,
+                                          repeats=21),
+                       bound_ms=bound, bound_by=by)
+            rec["bound_share"] = bound / rec["ms"]
+            log(f"  float32 {form:8s} {name}: device {rec['ms']:.5f} ms"
+                f" (cold L2 {rec['cold_ms']:.5f}), paced"
+                f" {rec['paced_ms']:.5f} ms, plain {rec['plain_ms']:.5f}"
+                f" ms; bound {bound:.5f} ms ({by}), share"
+                f" {100 * rec['bound_share']:.1f}% (cold"
+                f" {100 * bound / rec['cold_ms']:.1f}%)")
             out[name][form] = rec
     return out
 
@@ -198,10 +381,27 @@ def time_breakdown(solver, state, steps: int = 200, prof_steps: int = 20):
     unprofiled wall (median run) and the largest kernels."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    from tdgl_tpu_torch.models import gtdgl_stencil as gs
+    from tdgl_tpu_torch.ops.step_kernels import StepOperands
     from tdgl_tpu_torch.solver.grid_step import make_grid_chunk_fn
+
+    def profiled(fn):
+        """``torch.profiler`` over one ``fn()`` run, after a warm-up run
+        under the same profiler (its tracer drops the first records after
+        it starts)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        return prof
 
     class OpCount(TorchDispatchMode):
         n = 0
@@ -224,24 +424,46 @@ def time_breakdown(solver, state, steps: int = 200, prof_steps: int = 20):
         with counter:
             short(solver.sten, solver.amg, state)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            short(solver.sten, solver.amg, state)
-            torch.cuda.synchronize()
+        prof = profiled(lambda: short(solver.sten, solver.amg, state))
         # Device-side records only (kernels, memsets, copies).
         kernels = sorted(
             ((e.self_device_time_total / prof_steps, e.count / prof_steps,
               e.key) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA),
+             if e.device_type == DeviceType.CUDA
+             and not e.key.startswith("ProfilerStep")),
             reverse=True)
         device_ms = sum(k[0] for k in kernels) / 1e3
         busy = 100 * device_ms / statistics.median(walls)
         log(f"  {name}: wall ms/step {', '.join(f'{w:.2f}' for w in walls)};"
             f" torch ops/step {counter.n / prof_steps:.1f}; device kernel"
-            f" time {device_ms:.3f} ms/step, {sum(k[1] for k in kernels):.0f}"
-            f" launches/step, busy {busy:.1f}% of the median wall")
+            f" time {device_ms:.3f} ms/step, {sum(k[1] for k in kernels):.1f}"
+            f" device records/step, busy {busy:.1f}% of the median wall")
         for us, count, key in kernels[:8]:
             log(f"    {us:8.2f} us/step x {count:6.1f}  {key[:70]}")
+
+    # The psi wrapper's device records, called as the main path calls it.
+    ops = StepOperands(solver.sten,
+                       gs.factor_link_phases(solver.sten, state.A_applied),
+                       state.dA_dt, state.neumann_term)
+    calls = 20
+
+    def psi_calls():
+        for _ in range(calls):
+            ops.psi_update(solver.cfg.gamma, solver.cfg.u, state.psi_r,
+                           state.psi_i, state.mu, state.epsilon,
+                           state.tentative_dt)
+
+    prof = profiled(psi_calls)
+    records = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")}
+    others = {k: n for k, n in records.items()
+              if "psi_update_kernel" not in k}
+    per_call = sum(records.values()) / calls
+    log(f"  psi wrapper: {per_call:.2f} device records per call"
+        f" ({records}); fill or compare records from it:"
+        f" {others or 'none'}")
+    assert per_call == 1 and not others, records
 
 
 def small_device(pkg):
@@ -317,8 +539,12 @@ def main() -> int:
         assert solver.cfg.factor_link_phases
 
     with Phase("kernels vs plain versions"):
-        results = check_kernels(solver, solver._initial_state(), f64=False,
-                                timed=True)
+        state0 = solver._initial_state()
+        errs, cases = check_kernels(solver, state0, f64=False)
+        periodic_errs, _ = check_kernels(solver, state0, f64=False,
+                                         periodic=True)
+        check_flag_sequence(solver, cases["factored"])
+        timings = time_kernels(solver, cases, sleep_cycles_per_ms())
         small64 = ttdgl.TDGLSolver(
             small_device(ttdgl),
             ttdgl.SolverOptions(solve_time=1e9, dtype="float64",
@@ -327,8 +553,9 @@ def main() -> int:
             applied_vector_potential=0.5,
             terminal_currents=dict(source=3.0, drain=-3.0),
             torch_device="cuda")
-        check_kernels(small64, small64._initial_state(), f64=True,
-                      timed=False)
+        for periodic in (False, True):
+            check_kernels(small64, small64._initial_state(), f64=True,
+                          periodic=periodic)
 
     with Phase("small-input reference (float64, card vs CPU)"):
         small_opts = ttdgl.SolverOptions(
@@ -399,12 +626,18 @@ def main() -> int:
     log(f"gpu after: {smi_after}")
 
     def record(name, source, replaces):
-        fac = results[name]["factored"]
+        fac = timings[name]["factored"]
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],
-            max_abs_err=max(r["err"] for r in results[name].values()),
+            max_abs_err=max(*errs[name].values(),
+                            *periodic_errs[name].values()),
             ms=fac["ms"], plain_ms=fac["plain_ms"],
+            bound_ms=fac["bound_ms"], bound_by=fac["bound_by"],
+            library_ms=None, bound_share=fac["bound_share"],
+            launches_per_step=launches[name] / (steps + rewound),
+            cold_ms=fac["cold_ms"], paced_ms=fac["paced_ms"],
+            raw_ms=timings[name]["raw"]["ms"],
         )
 
     kernels = [

@@ -6,20 +6,49 @@
 // the 6-edge covariant Laplacian of split-complex psi, identity rows at
 // fixed sites, then the closed-form implicit-Euler quadratic with the
 // cancellation-free discriminant 1 + 4c - 4 Im(conj(w) z)^2. Outputs
-// psi_r, psi_i and |psi|^2 masked by `valid`; any valid site with a
-// negative (or NaN) discriminant stores 1 into the device flag `bad`,
-// which the wrapper zeroes before the launch (ok == (bad == 0)).
+// psi_r, psi_i and |psi|^2 masked by `valid`, and the 0-d bool `ok`: no
+// valid site has a negative (or NaN) discriminant.
 //
-// What bounds it on the card: bytes. Per site it reads the planes pr, pi,
-// mu, eps, sym_diag, inv_area, fixed_mask, valid and the 3 weight planes
-// (11 planes), plus the 6 raw link planes in the raw form (17 planes); the
-// factored form reads four short row/column vectors instead. It writes 3
-// planes. At (256, 384) float32 a plane is 393 KB, so the working set
-// (under 7 MB) sits in the 50 MB L2 and neighbour re-reads hit cache.
-// Design: one thread per (r, c) site, neighbour indices taken modulo the
-// padded grid, and each negative-edge term computed at the neighbour site
-// (the shift_m(...) form) so nothing but inputs is read. No shared-memory
-// tiling yet.
+// What bounds it on the card: bytes. It reads 11 site planes (pr, pi, mu,
+// eps, sym_diag, inv_area, fixed_mask, valid and the 3 weight planes w),
+// plus the link vectors (3, rows) and (3, cols) in the factored form or 6
+// more planes in the raw form, and writes 3 planes. At (256, 384) float32
+// a plane is 393,216 B: 14 planes, ~5.5 MB, 1.65 us at 3.35 TB/s
+// (factored); 20 planes, ~7.9 MB, 2.35 us (raw). About 2 flop per byte,
+// far below the ~20 at which float32 arithmetic would bound it.
+//
+// Design (stencil_common.cuh): one block per 8 x 32 tile, 256 threads,
+// one site per thread, 384 blocks at (256, 384).
+// 1. Every global load of a thread is issued first, into registers (see
+//    "Latency" in stencil_common.cuh): pr, pi of the tile plus a wrapped
+//    one-site halo and the factored link vectors (then stored to shared
+//    memory, from where every neighbour read comes), the class planes of
+//    the edge region, and the thread's own site planes.
+// 2. The negative-edge term w_k(j) conj(U_k(j)) psi(j) is an edge
+//    quantity of the edge's origin j = i - offset_k (the plain version's
+//    shift_m(w (U* psi)) form). Each block computes it once per edge of
+//    its edge region into shared memory, so the w planes' halo is read
+//    once, coalesced, and no site reads a neighbour's w or link.
+// 3. Each site adds its three positive-edge terms (own w_k, U_k; psi from
+//    the shared tile) and the three staged negative-edge terms, then does
+//    the update.
+// 4. `ok` in the same launch: each block ORs "valid site with
+//    !(disc >= 0)" over its threads (__syncthreads_or), then adds itself
+//    to one flag word with a single atomicAdd: the low 16 bits count
+//    blocks (the ticket), the high 16 bits count failing blocks. The add
+//    that returns a ticket of blocks - 1 belongs to the block that counts
+//    itself last; the value it returns holds every other block's verdict,
+//    so that block writes `ok` and stores 0 for the next launch. One
+//    atomic word needs no fence, and the reset does not depend on block
+//    order, so the launch also works under CUDA-graph replay. The word
+//    belongs to one device and assumes one stream on it: the wrapper keeps
+//    one zeroed word per device and launches on the current stream only.
+//
+// ptxas on the card (-Xptxas -v, sm_90a, CUDA 12.8), registers per thread
+// and static shared memory per block, no spills (the 32-40 B stack frame
+// is sincos's slow argument reduction):
+//   float  factored 40 regs, 11,120 B    float  raw 48 regs, 10,064 B
+//   double factored 60 regs, 22,240 B    double raw 80 regs, 20,128 B
 
 #include "stencil_common.cuh"
 
@@ -44,7 +73,8 @@ struct PsiArgs {
   T* out_r;
   T* out_i;
   T* out_sq;
-  int* bad;
+  unsigned int* flag;  // failing blocks << 16 | blocks; 0 between launches
+  unsigned char* ok;  // 0-d torch.bool
   int rows;
   int cols;
 };
@@ -52,13 +82,89 @@ struct PsiArgs {
 template <typename T, bool FACTORED>
 __global__ void __launch_bounds__(kThreads)
 psi_update_kernel(const PsiArgs<T> a) {
+  __shared__ T s_pr[kHalo];
+  __shared__ T s_pi[kHalo];
+  __shared__ T s_nr[3 * kEdge];   // negative-edge term, real part
+  __shared__ T s_ni[3 * kEdge];   // and imaginary part
+  __shared__ LinkTile<T> s_link;
+
+  const TileGeom g = this_tile(a.rows, a.cols);
   const int n = a.rows * a.cols;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int r = i / a.cols;
-  const int c = i - r * a.cols;
-  const T pr = a.pr[i];
-  const T pi = a.pi[i];
+
+  // 1. Every global load of this thread, before the first barrier.
+  HaloRegs<T> halo;
+  halo.load(a.pr, a.pi, g);
+  LinkRegs<T> links;
+  if (FACTORED) links.load(a.link, g);
+  // The edges whose head i = j + offset_k is a tile site: w_k(j) and, in
+  // the raw form, U_k(j).
+  T e_w[kEdgeIters], e_ur[kEdgeIters], e_ui[kEdgeIters];
+#pragma unroll
+  for (int it = 0; it < kEdgeIters; ++it) {
+    const int e = thread_rank() + it * kThreads;
+    int k, er, ec;
+    edge_site(e, k, er, ec);
+    if (e < 3 * kEdge && in_tile(er + off_r(k), ec + off_c(k))) {
+      const int gi = k * n + g.flat(er, ec);
+      e_w[it] = __ldg(a.w + gi);
+      if (!FACTORED) {
+        e_ur[it] = __ldg(a.link.ur + gi);
+        e_ui[it] = __ldg(a.link.ui + gi);
+      }
+    }
+  }
+  // This thread's own site.
+  const int lr = threadIdx.y;
+  const int lc = threadIdx.x;
+  const int i = (g.r0 + lr) * a.cols + g.c0 + lc;
+  T w[3], ur[3], ui[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    w[k] = __ldg(a.w + k * n + i);
+    if (!FACTORED) {
+      ur[k] = __ldg(a.link.ur + k * n + i);
+      ui[k] = __ldg(a.link.ui + k * n + i);
+    }
+  }
+  const T mu = __ldg(a.mu + i);
+  const T eps = __ldg(a.eps + i);
+  const T diag = __ldg(a.sym_diag + i);
+  const T inv_a = __ldg(a.inv_area + i);
+  const T fixed = __ldg(a.fixed + i);
+  const T valid = __ldg(a.valid + i);
+  const T dt = *a.dt;
+
+  // 2. Stage psi and the link vectors.
+  halo.store(s_pr, s_pi);
+  if (FACTORED) links.store(s_link);
+  __syncthreads();
+
+  // 3. Negative-edge terms w_k(j) conj(U_k(j)) psi(j) of those edges.
+#pragma unroll
+  for (int it = 0; it < kEdgeIters; ++it) {
+    const int e = thread_rank() + it * kThreads;
+    int k, er, ec;
+    edge_site(e, k, er, ec);
+    if (e < 3 * kEdge && in_tile(er + off_r(k), ec + off_c(k))) {
+      T eur, eui;
+      if (FACTORED) {
+        factored_link(s_link, k, er, ec, eur, eui);
+      } else {
+        eur = e_ur[it];
+        eui = e_ui[it];
+      }
+      const int he = hidx(er, ec);
+      const T epr = s_pr[he], epi = s_pi[he];
+      s_nr[e] = e_w[it] * (eur * epr + eui * epi);
+      s_ni[e] = e_w[it] * (eur * epi - eui * epr);
+    }
+  }
+  __syncthreads();
+
+  // 4. Laplacian and implicit-Euler update of this thread's site.
+  const int h = hidx(lr, lc);
+  const T pr = s_pr[h];
+  const T pi = s_pi[h];
   const T old_sq = pr * pr + pi * pi;
 
   T acc_r = T(0);
@@ -66,38 +172,33 @@ psi_update_kernel(const PsiArgs<T> a) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int dr = off_r(k), dc = off_c(k);
-    const int ip = wrap(r + dr, a.rows) * a.cols + wrap(c + dc, a.cols);
-    const int rm = wrap(r - dr, a.rows), cm = wrap(c - dc, a.cols);
-    const int im = rm * a.cols + cm;
-    T ur, ui, urm, uim;
-    link_at<T, FACTORED>(a.link, k, r, c, i, n, a.rows, a.cols, ur, ui);
-    link_at<T, FACTORED>(a.link, k, rm, cm, im, n, a.rows, a.cols, urm, uim);
-    const T wk = a.w[k * n + i];
-    const T wkm = a.w[k * n + im];
-    const T pr_p = a.pr[ip], pi_p = a.pi[ip];
-    const T pr_m = a.pr[im], pi_m = a.pi[im];
+    T ukr, uki;
+    if (FACTORED) {
+      factored_link(s_link, k, lr, lc, ukr, uki);
+    } else {
+      ukr = ur[k];
+      uki = ui[k];
+    }
+    const int hp = hidx(lr + dr, lc + dc);
+    const T pr_p = s_pr[hp], pi_p = s_pi[hp];
     // positive edge: U_k psi_{+k}
-    acc_r = acc_r + wk * (ur * pr_p - ui * pi_p);
-    acc_i = acc_i + wk * (ur * pi_p + ui * pr_p);
-    // negative edge, evaluated at the neighbour: conj(U_k) psi_{-k}
-    acc_r = acc_r + wkm * (urm * pr_m + uim * pi_m);
-    acc_i = acc_i + wkm * (urm * pi_m - uim * pr_m);
+    acc_r = acc_r + w[k] * (ukr * pr_p - uki * pi_p);
+    acc_i = acc_i + w[k] * (ukr * pi_p + uki * pr_p);
+    // negative edge: conj(U_k) psi at i - offset_k, staged above
+    const int m = k * kEdge + hidx(lr - dr, lc - dc);
+    acc_r = acc_r + s_nr[m];
+    acc_i = acc_i + s_ni[m];
   }
-  const T diag = a.sym_diag[i];
-  const T inv_a = a.inv_area[i];
-  const T fixed = a.fixed[i];
   T lap_r = (acc_r - pr * diag) * inv_a;
   T lap_i = (acc_i - pi * diag) * inv_a;
   lap_r = (T(1) - fixed) * lap_r + fixed * pr;
   lap_i = (T(1) - fixed) * lap_i + fixed * pi;
 
-  const T dt = *a.dt;
-  const T phase = a.mu[i] * dt;
-  const T tr = dev_cos(phase);
-  const T ti = -dev_sin(phase);
+  T sin_p, tr;
+  dev_sincos(mu * dt, &sin_p, &tr);
+  const T ti = -sin_p;
   const T zr = a.half_g2 * (tr * pr - ti * pi);
   const T zi = a.half_g2 * (tr * pi + ti * pr);
-  const T eps = a.eps[i];
   const T coeff = (dt / a.u) * dev_sqrt(T(1) + a.g2 * old_sq);
   const T gr = pr + coeff * ((eps - old_sq) * pr + lap_r);
   const T gi = pi + coeff * ((eps - old_sq) * pi + lap_i);
@@ -108,14 +209,23 @@ psi_update_kernel(const PsiArgs<T> a) {
   const T w2 = wr * wr + wi * wi;
   const T im_wz = wr * zi - wi * zr;
   const T disc = T(1) + T(4) * cc - T(4) * (im_wz * im_wz);
-  const T valid = a.valid[i];
-  if (valid > T(0) && !(disc >= T(0))) *a.bad = 1;
   // max(disc, 0) that keeps a NaN, like torch.clamp.
   const T disc_pos = disc < T(0) ? T(0) : disc;
   const T new_sq = (T(2) * w2) / (two_c_1 + dev_sqrt(disc_pos));
   a.out_r[i] = (wr - zr * new_sq) * valid;
   a.out_i[i] = (wi - zi * new_sq) * valid;
   a.out_sq[i] = new_sq * valid;
+
+  // 5. ok: OR over the block, then the block that counts itself last
+  //    decides for the launch.
+  const int bad = __syncthreads_or(valid > T(0) && !(disc >= T(0)));
+  if (thread_rank() == 0) {
+    const unsigned int before = atomicAdd(a.flag, bad ? 0x10001u : 1u);
+    if ((before & 0xffffu) == gridDim.x * gridDim.y - 1) {
+      *a.ok = (before >> 16) == 0 && !bad ? 1 : 0;
+      *a.flag = 0u;
+    }
+  }
 }
 
 template <typename T>
@@ -124,8 +234,14 @@ int launch_psi_update(const T* pr, const T* pi, const T* mu, const T* eps,
                       const T* fixed, const T* valid, const T* ur,
                       const T* ui, const T* cf, const T* sf, const T* cg,
                       const T* sg, int factored, const T* dt, double gamma,
-                      double u, T* out_r, T* out_i, T* out_sq, int* bad,
-                      int rows, int cols, void* stream) {
+                      double u, T* out_r, T* out_i, T* out_sq,
+                      unsigned int* flag, unsigned char* ok, int rows,
+                      int cols, void* stream) {
+  // The flag word counts blocks in 16 bits.
+  if (!tiles_cover(rows, cols) ||
+      (rows / kTileR) * (cols / kTileC) > 0xffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   PsiArgs<T> a;
   a.pr = pr; a.pi = pi; a.mu = mu; a.eps = eps; a.w = w;
   a.sym_diag = sym_diag; a.inv_area = inv_area; a.fixed = fixed;
@@ -135,15 +251,15 @@ int launch_psi_update(const T* pr, const T* pi, const T* mu, const T* eps,
   a.half_g2 = static_cast<T>(0.5 * (gamma * gamma));
   a.g2 = static_cast<T>(gamma * gamma);
   a.u = static_cast<T>(u);
-  a.out_r = out_r; a.out_i = out_i; a.out_sq = out_sq; a.bad = bad;
+  a.out_r = out_r; a.out_i = out_i; a.out_sq = out_sq;
+  a.flag = flag; a.ok = ok;
   a.rows = rows; a.cols = cols;
-  const int n = rows * cols;
-  const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid = tile_grid(rows, cols);
   if (factored) {
-    psi_update_kernel<T, true><<<blocks, kThreads, 0, s>>>(a);
+    psi_update_kernel<T, true><<<grid, tile_block(), 0, s>>>(a);
   } else {
-    psi_update_kernel<T, false><<<blocks, kThreads, 0, s>>>(a);
+    psi_update_kernel<T, false><<<grid, tile_block(), 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -156,13 +272,20 @@ int launch_psi_update(const T* pr, const T* pi, const T* mu, const T* eps,
                       const T* fixed, const T* valid, const T* ur,            \
                       const T* ui, const T* cf, const T* sf, const T* cg,     \
                       const T* sg, int factored, const T* dt, double gamma,   \
-                      double u, T* out_r, T* out_i, T* out_sq, int* bad,      \
-                      int rows, int cols, void* stream) {                     \
+                      double u, T* out_r, T* out_i, T* out_sq,                \
+                      unsigned int* flag, unsigned char* ok, int rows,        \
+                      int cols, void* stream) {                               \
     return tdgl::launch_psi_update<T>(pr, pi, mu, eps, w, sym_diag, inv_area, \
                                       fixed, valid, ur, ui, cf, sf, cg, sg,   \
                                       factored, dt, gamma, u, out_r, out_i,   \
-                                      out_sq, bad, rows, cols, stream);       \
+                                      out_sq, flag, ok, rows, cols, stream);  \
   }
 
 TDGL_PSI_ENTRY(tdgl_psi_update_f32, float)
 TDGL_PSI_ENTRY(tdgl_psi_update_f64, double)
+
+// The (rows, cols) tile of both kernels: the grid must be a multiple of it.
+extern "C" void tdgl_step_tile(int* rows, int* cols) {
+  *rows = tdgl::kTileR;
+  *cols = tdgl::kTileC;
+}

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -31,6 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Filled by load_library(): build seconds, whether a cached library was
 # reused, the library path and nvcc's output (ptxas register/spill report).
 BUILD_INFO: dict = {}
+
+# The kernels' (rows, cols) site tile, read from the library by
+# load_library(); the grid must be a multiple of it.
+TILE: Optional[Tuple[int, int]] = None
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -91,18 +95,23 @@ def build_library() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+    """The loaded kernel library (built on first call); also sets
+    :data:`TILE`."""
+    global _lib, TILE
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(build_library())
+    rows, cols = ctypes.c_int(), ctypes.c_int()
+    lib.tdgl_step_tile.restype = None
+    lib.tdgl_step_tile(ctypes.byref(rows), ctypes.byref(cols))
+    TILE = (rows.value, cols.value)
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("tdgl_psi_update_f32", "tdgl_psi_update_f64"):
         fn = getattr(lib, name)
         fn.restype = i
         # pr pi mu eps w sym_diag inv_area fixed valid ur ui cf sf cg sg
-        # factored dt gamma u out_r out_i out_sq bad rows cols stream
-        fn.argtypes = [p] * 15 + [i, p, d, d, p, p, p, p, i, i, p]
+        # factored dt gamma u out_r out_i out_sq flag ok rows cols stream
+        fn.argtypes = [p] * 15 + [i, p, d, d, p, p, p, p, p, i, i, p]
     for name in ("tdgl_poisson_rhs_f32", "tdgl_poisson_rhs_f64"):
         fn = getattr(lib, name)
         fn.restype = i

@@ -5,7 +5,9 @@ Port of the unscreened, static-input part of
 per-step outputs, with the state held as dense ``(Rp, Cp)`` tensors. The
 psi update and the Poisson right-hand side go through the fused kernels of
 :mod:`tdgl_tpu_torch.ops.step_kernels` (hand-written CUDA on the card,
-their plain versions on the CPU).
+their plain versions on the CPU), with their chunk-constant operands bound
+and checked once per chunk (:class:`~tdgl_tpu_torch.ops.step_kernels.
+StepOperands`).
 
 Eager PyTorch cannot drop dead work the way XLA does, so the step computes
 only what the chunk carries: the per-step supercurrent and normal current
@@ -21,7 +23,7 @@ import torch
 
 from ..models import gtdgl_stencil as gs
 from ..ops.cg import solve_mu_poisson_grid
-from ..ops.step_kernels import fused_poisson_rhs, fused_psi_update
+from ..ops.step_kernels import StepOperands
 from .step import StepConfig, StepOutputs
 
 
@@ -79,11 +81,13 @@ def export_grid_state_arrays(state: GridState):
 
 
 def make_grid_step_fn(cfg: StepConfig):
-    """Build ``(sten, amg, state, static_link, aux) -> (state, outputs)``.
+    """Build ``(sten, amg, state, ops, aux) -> (state, outputs)``.
 
-    ``static_link`` is the chunk-constant link form (the applied potential
-    is static); ``aux`` holds the chunk's device constants (probe indices,
-    the adaptive-window positions). ``cfg.probe_ix`` holds flat
+    ``ops`` is the chunk's :class:`StepOperands`: the stencil, the
+    chunk-constant link form (the applied potential is static), ``dA_dt``
+    and the Neumann term, checked once for the kernels; ``aux`` holds the
+    chunk's device constants (probe indices, the adaptive-window
+    positions). ``cfg.probe_ix`` holds flat
     padded-grid indices.
     """
     if cfg.include_screening or cfg.A_fn is not None \
@@ -93,9 +97,9 @@ def make_grid_step_fn(cfg: StepConfig):
             " (ROADMAP Queue 1: traced inputs, screening)"
         )
 
-    def euler_with_retries(sten, U, pr, pi, mu, epsilon, dt0):
-        new_r, new_i, new_sq, ok = fused_psi_update(
-            cfg.gamma, cfg.u, sten, U, pr, pi, mu, epsilon, dt0)
+    def euler_with_retries(ops, pr, pi, mu, epsilon, dt0):
+        new_r, new_i, new_sq, ok = ops.psi_update(
+            cfg.gamma, cfg.u, pr, pi, mu, epsilon, dt0)
         if not cfg.adaptive or cfg.fast_chunk:
             return new_r, new_i, new_sq, dt0, torch.logical_not(ok)
         # Discriminant retries with a shrinking dt: one host read of `ok`
@@ -103,13 +107,13 @@ def make_grid_step_fn(cfg: StepConfig):
         dt, tries = dt0, 0
         while tries <= cfg.max_solve_retries and not bool(ok):
             dt = dt * cfg.adaptive_time_step_multiplier
-            new_r, new_i, new_sq, ok = fused_psi_update(
-                cfg.gamma, cfg.u, sten, U, pr, pi, mu, epsilon, dt)
+            new_r, new_i, new_sq, ok = ops.psi_update(
+                cfg.gamma, cfg.u, pr, pi, mu, epsilon, dt)
             tries += 1
         return new_r, new_i, new_sq, dt, torch.logical_not(ok)
 
-    def solve_mu(sten, amg, U, pr, pi, dA_dt, neumann_term, mu_guess):
-        rhs = fused_poisson_rhs(sten, U, pr, pi, dA_dt, neumann_term)
+    def solve_mu(sten, amg, ops, pr, pi, mu_guess):
+        rhs = ops.poisson_rhs(pr, pi)
         # The robust program's solve gets a tolerance-stopped top-up after
         # its fixed iterations; the fast program gates the residual instead.
         return solve_mu_poisson_grid(
@@ -122,18 +126,17 @@ def make_grid_step_fn(cfg: StepConfig):
             topup=not cfg.fast_chunk,
         )
 
-    def step(sten, amg, state: GridState, static_link, aux):
+    def step(sten, amg, state: GridState, ops: StepOperands, aux):
         rdtype = state.mu.dtype
         time = state.time
         old_sq = state.psi_r**2 + state.psi_i**2
         guess = (2.0 * state.mu - state.mu_prev if cfg.poisson_predictor
                  else state.mu)
         pr_n, pi_n, sq_n, dt_used, fail = euler_with_retries(
-            sten, static_link, state.psi_r, state.psi_i, state.mu,
-            state.epsilon, state.tentative_dt,
+            ops, state.psi_r, state.psi_i, state.mu, state.epsilon,
+            state.tentative_dt,
         )
-        cg = solve_mu(sten, amg, static_link, pr_n, pi_n, state.dA_dt,
-                      state.neumann_term, guess)
+        cg = solve_mu(sten, amg, ops, pr_n, pi_n, guess)
         mu_n = cg.x
         if cfg.poisson_fixed_iters is not None:
             # Fast chunks replace the top-up loop with a looser residual
@@ -194,7 +197,9 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
     Mirrors the JAX chunk program:
 
     * the link variables are computed once per chunk (static applied
-      potential), in factored form when ``cfg.factor_link_phases``;
+      potential), in factored form when ``cfg.factor_link_phases``, and
+      bound with the other chunk-constant kernel operands (``dA_dt``, the
+      Neumann term: neither is carried) into one :class:`StepOperands`;
     * only the fields a step changes are carried; finished or failed runs
       are frozen with an elementwise select on the device flag ``done``
       (no host read inside the chunk, apart from the robust program's
@@ -214,6 +219,8 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
             static_link = gs.factor_link_phases(sten, state.A_applied)
         else:
             static_link = gs.edge_link_phases(sten, state.A_applied)
+        ops = StepOperands(sten, static_link, state.dA_dt,
+                           state.neumann_term)
         aux = dict(
             probe_ix=torch.tensor(list(cfg.probe_ix or ()), dtype=torch.long,
                                   device=dev),
@@ -227,7 +234,7 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
         steps = []
         for _ in range(chunk_size):
             frozen = st.done
-            new_st, out = step_fn(sten, amg, st, static_link, aux)
+            new_st, out = step_fn(sten, amg, st, ops, aux)
             st = st._replace(**{
                 k: torch.where(frozen, getattr(st, k), getattr(new_st, k))
                 for k in carried

@@ -18,8 +18,10 @@ import pytest
 import torch
 
 import tdgl_tpu_torch as ttdgl
+from tdgl_tpu_torch import convert
 from tdgl_tpu_torch.models import gtdgl_stencil as gs
 from tdgl_tpu_torch.ops import step_kernels
+from tdgl_tpu_torch.testing import periodic_stencil
 
 pytestmark = pytest.mark.cuda
 
@@ -84,20 +86,49 @@ def _links(solver, state):
             "factored": gs.factor_link_phases(solver.sten, state.A_applied)}
 
 
+def _periodic(solver, dtype, seed=5):
+    """The solver's stencil with every edge live (wrapped ones included),
+    on the card, and seeded inputs that are nonzero on every site."""
+    host = periodic_stencil(solver.host_sten, seed)
+    sten = convert.stencil_to_torch(host, solver.torch_device)
+    shape = solver.maps.shape
+    rng = np.random.default_rng(seed)
+    amp = rng.uniform(0.2, 1.0, shape)
+    phase = rng.uniform(-np.pi, np.pi, shape)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=solver.torch_device)
+
+    x = dict(pr=t(amp * np.cos(phase)), pi=t(amp * np.sin(phase)),
+             mu=t(rng.normal(size=shape)), eps=t(np.ones(shape)),
+             dA=t(rng.normal(size=(3,) + shape) * 0.05),
+             neumann=t(rng.normal(size=shape) * 0.1))
+    return sten, x
+
+
+@pytest.mark.parametrize("stencil", ["real", "periodic"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("form", ["raw", "factored"])
-def test_kernels_match_plain(cuda_device, mesh_device, dtype, form):
+def test_kernels_match_plain(cuda_device, mesh_device, dtype, form,
+                             stencil):
+    """On the solver's stencil, and on a periodic one where every wrapped
+    edge carries weight: edge tiles must read the wrapped halo that
+    torch.roll gives, not zeros."""
     solver = _solver(mesh_device, cuda_device, dtype)
     state = solver._initial_state()
     U = _links(solver, state)[form]
-    x = _inputs(solver)
+    if stencil == "real":
+        sten, x = solver.sten, _inputs(solver)
+        x["neumann"] = state.neumann_term
+    else:
+        sten, x = _periodic(solver, solver.torch_dtype)
     g, u = solver.cfg.gamma, solver.cfg.u
     dt = torch.tensor(1e-2, dtype=solver.torch_dtype, device=cuda_device)
     launches = step_kernels.fused_psi_update.launches
-    got = step_kernels.fused_psi_update(g, u, solver.sten, U, x["pr"],
-                                        x["pi"], x["mu"], x["eps"], dt)
-    ref = step_kernels.plain_psi_update(g, u, solver.sten, U, x["pr"],
-                                        x["pi"], x["mu"], x["eps"], dt)
+    got = step_kernels.fused_psi_update(g, u, sten, U, x["pr"], x["pi"],
+                                        x["mu"], x["eps"], dt)
+    ref = step_kernels.plain_psi_update(g, u, sten, U, x["pr"], x["pi"],
+                                        x["mu"], x["eps"], dt)
     torch.cuda.synchronize()
     assert step_kernels.fused_psi_update.launches == launches + 1
     for a, b in zip(got[:3], ref[:3]):
@@ -107,11 +138,10 @@ def test_kernels_match_plain(cuda_device, mesh_device, dtype, form):
         else:
             assert err < 1e-12 * max(b.abs().max().item(), 1.0)
     assert bool(got[3]) == bool(ref[3])
-    rhs = step_kernels.fused_poisson_rhs(solver.sten, U, x["pr"], x["pi"],
-                                         x["dA"], state.neumann_term)
-    rhs_ref = step_kernels.plain_poisson_rhs(solver.sten, U, x["pr"],
-                                             x["pi"], x["dA"],
-                                             state.neumann_term)
+    rhs = step_kernels.fused_poisson_rhs(sten, U, x["pr"], x["pi"],
+                                         x["dA"], x["neumann"])
+    rhs_ref = step_kernels.plain_poisson_rhs(sten, U, x["pr"], x["pi"],
+                                             x["dA"], x["neumann"])
     scale = max(rhs_ref.abs().max().item(), 1.0)
     tol = 3e-5 if dtype == "float32" else 1e-12
     assert (rhs - rhs_ref).abs().max().item() < tol * scale
@@ -129,6 +159,64 @@ def test_bad_flag_matches_plain(cuda_device, mesh_device):
     ref = step_kernels.plain_psi_update(*args)
     assert not bool(ref[3])
     assert bool(got[3]) == bool(ref[3])
+
+
+def test_ok_flag_resets_between_calls(cuda_device, mesh_device):
+    """Fail, pass, fail, pass through one bound operand set: the flag
+    words reset themselves, and every ``ok`` agrees with the plain
+    version."""
+    solver = _solver(mesh_device, cuda_device, "float32")
+    state = solver._initial_state()
+    ops = step_kernels.StepOperands(solver.sten,
+                                    _links(solver, state)["factored"])
+    x = _inputs(solver, seed=4)
+    g, u = solver.cfg.gamma, solver.cfg.u
+    seen = []
+    for dt, mu_scale in ((50.0, 40.0), (1e-5, 1.0), (50.0, 40.0),
+                         (1e-5, 1.0)):
+        dt_t = torch.tensor(dt, dtype=torch.float32, device=cuda_device)
+        args = (x["pr"], x["pi"], mu_scale * x["mu"], x["eps"], dt_t)
+        got = ops.psi_update(g, u, *args)[3]
+        ref = step_kernels.plain_psi_update(g, u, solver.sten, ops.U,
+                                            *args)[3]
+        seen.append((bool(got), bool(ref)))
+    assert seen == [(False, False), (True, True)] * 2
+
+
+def test_nan_mu_fails_ok(cuda_device, mesh_device):
+    solver = _solver(mesh_device, cuda_device, "float32")
+    state = solver._initial_state()
+    U = _links(solver, state)["factored"]
+    x = _inputs(solver)
+    site = int(solver.maps.site_flat[len(solver.maps.site_flat) // 2])
+    mu = x["mu"].clone()
+    mu.view(-1)[site] = float("nan")
+    for m, ok in ((x["mu"], True), (mu, False)):
+        args = (solver.cfg.gamma, solver.cfg.u, solver.sten, U, x["pr"],
+                x["pi"], m, x["eps"], 1e-5)
+        assert bool(step_kernels.plain_psi_update(*args)[3]) is ok
+        assert bool(step_kernels.fused_psi_update(*args)[3]) is ok
+
+
+def test_binding_rejects_bad_operands(cuda_device, mesh_device):
+    """The grid must be a multiple of the kernels' tile, and every bound
+    operand contiguous."""
+    solver = _solver(mesh_device, cuda_device, "float32")
+    state = solver._initial_state()
+    U = _links(solver, state)["raw"]
+    R, C = solver.maps.shape
+    cut = solver.sten._replace(**{
+        f: getattr(solver.sten, f)[..., :C - 8].contiguous()
+        for f in ("valid", "w", "sym_diag", "inv_area", "fixed_mask")})
+    with pytest.raises(ValueError, match="multiple"):
+        step_kernels.StepOperands(cut, U)
+    with pytest.raises(ValueError, match="contiguous"):
+        step_kernels.StepOperands(
+            solver.sten._replace(w=solver.sten.w.transpose(1, 2)
+                                 .contiguous().transpose(1, 2)), U)
+    with pytest.raises(ValueError, match="contiguous"):
+        step_kernels.StepOperands(solver.sten, U, state.dA_dt,
+                                  state.neumann_term.t().contiguous().t())
 
 
 def test_wrappers_reject_bad_operands(cuda_device, mesh_device):
