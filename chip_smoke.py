@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-The workload is the benchmark's: a structured (hex-lattice) film of
-~50,000 sites padded to a (256, 384) grid, float32, a static 0.5 mT applied
-field, screening off, adaptive dt, and the gated fast chunk program with
-failover to the robust program. Phases (each prints its seconds):
+The workload is the benchmark's film: a structured (hex-lattice) film of
+~50,000 sites padded to a (256, 384) grid, here with a source and a drain
+terminal on its left and right edges and two probe points at +-side/4;
+float32, a static 0.5 mT applied field and 20 uA source current, screening
+off, adaptive dt, and the gated fast chunk program with failover to the
+robust program. Phases (each prints its seconds):
 
 1. the card's name and power limit (``nvidia-smi``); fails without CUDA;
 2. build of the CUDA kernels from ``tdgl_tpu_torch/csrc`` with ``nvcc``;
-3. the benchmark device and solver (host meshing, stencils, multigrid);
+3. the device and solver (host meshing, stencils, multigrid);
 4. each kernel against its plain PyTorch version at the benchmark grid in
    float32 (raw and factored link phases) and on a small grid in float64,
    on the real stencil and on a periodic one (every edge live, so edge
@@ -22,25 +24,35 @@ failover to the robust program. Phases (each prints its seconds):
    kernel call, streamed by one library kernel);
 5. a small-input reference check: a float64 chunk on the card against the
    same solver on the CPU (plain versions);
-6. the main path: ``TDGLSolver(..., torch_device="cuda")``,
-   ``_initial_state()`` and several ``chunk_fn`` calls, with the kernels'
-   launch counters reset just before and read just after;
-7. where a step's time goes, from the main path's final state: wall time,
+6. the bare chunk loop: ``TDGLSolver(..., torch_device="cuda")``,
+   ``_initial_state()`` and ``chunk_fn`` calls until ``solve_time`` (about
+   4,000 steps), one host read per chunk, nothing written;
+7. ``tdgl_tpu_torch.solve()`` on the same device with the same options
+   (the package's entry point: the same chunks, plus the Runner's
+   snapshots, checkpoints and the output file), its ``Solution`` read back
+   with ``Solution.from_hdf5``; the difference from phase 6 is the
+   Runner's cost;
+8. where a step's time goes, from phase 6's final state: wall time,
    torch ops and device kernel time per step (``torch.profiler``), for
    the fast and the robust program, and the device records of one psi
    wrapper call (one kernel, no fill or compare).
 
-The last two stdout lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py`` (one
-GPU); ``--chunk`` and ``--chunks`` resize the main-path run.
+Phases 6 and 7 each reset the kernels' launch counters just before and
+read them just after; each count must equal the steps that path executed
+(chunks times chunk size, robust re-runs included). The last two stdout
+lines are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
+Usage: ``python3 chip_smoke.py`` (one GPU); ``--chunk`` (steps per chunk
+and per snapshot) and ``--solve-time`` resize phases 6 and 7.
 """
 
 import argparse
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Tolerances of the kernel checks (the CPU pins of the JAX package's
@@ -80,7 +92,10 @@ class Phase:
 
 
 def bench_device(pkg, target_sites: int = 50_000):
-    """The benchmark film (``bench.build_device``), built with the port."""
+    """The benchmark film (``bench.build_device``), built with the port,
+    with a source and a drain terminal on its left and right edges and
+    two probe points at +-side/4 (the terminals do not change the
+    mesh)."""
     import numpy as np
 
     layer = pkg.Layer(coherence_length=1.0, london_lambda=2.0,
@@ -89,10 +104,49 @@ def bench_device(pkg, target_sites: int = 50_000):
     film = pkg.Polygon("film", points=pkg.box(side)).resample(
         max(200, int(11 * side))
     )
-    device = pkg.Device("bench", layer=layer, film=film, length_units="um")
+    source = pkg.Polygon("source", points=pkg.box(1, side / 2,
+                                                  center=(-side / 2, 0)))
+    drain = pkg.Polygon("drain", points=pkg.box(1, side / 2,
+                                                center=(side / 2, 0)))
+    device = pkg.Device("bench", layer=layer, film=film,
+                        terminals=[source, drain],
+                        probe_points=[(-side / 4, 0), (side / 4, 0)],
+                        length_units="um")
     device.make_mesh(min_points=target_sites, max_edge_length=0.75,
                      structured=True)
     return device
+
+
+class FailoverCount(logging.Handler):
+    """Counts the solver's failover records (the log line it writes each
+    time a fast chunk is rewound and re-run with the robust program)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.n = 0
+
+    def emit(self, record):
+        if "fast chunk flagged" in record.getMessage():
+            self.n += 1
+
+
+def timed_calls(cls, names, seconds):
+    """Wrap methods ``names`` of ``cls`` to append their wall seconds to
+    ``seconds``; returns a function that restores them."""
+    saved = {name: getattr(cls, name) for name in names}
+
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds.append(time.perf_counter() - t0)
+        return timed
+
+    for name, fn in saved.items():
+        setattr(cls, name, wrap(fn))
+    return lambda: [setattr(cls, n, fn) for n, fn in saved.items()]
 
 
 def sleep_cycles_per_ms() -> float:
@@ -373,7 +427,7 @@ def time_kernels(solver, cases, cycles_per_ms: float):
     return out
 
 
-def time_breakdown(solver, state, steps: int = 200, prof_steps: int = 20):
+def time_breakdown(solver, state, steps: int = 100, prof_steps: int = 20):
     """Where a step's time goes, for the fast and the robust chunk program
     started from ``state``: wall ms per step (3 runs of ``steps`` steps),
     torch ops dispatched per step, and, from ``torch.profiler`` over
@@ -482,13 +536,13 @@ def small_device(pkg):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--chunk", type=int, default=2000,
-                        help="steps per chunk on the main path")
-    parser.add_argument("--chunks", type=int, default=4,
-                        help="chunks on the main path (at least 3)")
+    parser.add_argument("--chunk", type=int, default=1000,
+                        help="steps per chunk and per snapshot (phases 6-7)")
+    parser.add_argument("--solve-time", type=float, default=39.8,
+                        help="simulated time of phases 6-7 (the default"
+                        " takes about 4,000 steps and ends in the fourth"
+                        " chunk of 1,000)")
     args = parser.parse_args()
-    if args.chunks < 3:
-        parser.error("--chunks must be at least 3")
 
     import torch
 
@@ -523,18 +577,22 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    options = dict(solve_time=1e9, dt_init=1e-4, dt_max=1e-2,
-                   save_every=args.chunk, steps_per_chunk=args.chunk,
-                   field_units="mT", current_units="uA", dtype="float32")
-    with Phase("benchmark device + solver setup"):
+    options = dict(solve_time=args.solve_time, dt_init=1e-4, dt_max=1e-2,
+                   save_every=args.chunk, field_units="mT",
+                   current_units="uA", dtype="float32")
+    inputs = dict(applied_vector_potential=0.5,
+                  terminal_currents=dict(source=20.0, drain=-20.0))
+    with Phase("device + solver setup"):
         device = bench_device(ttdgl)
+        t0 = time.perf_counter()
         solver = ttdgl.TDGLSolver(device, ttdgl.SolverOptions(**options),
-                                  applied_vector_potential=0.5,
-                                  torch_device="cuda")
+                                  torch_device="cuda", **inputs)
+        setup_s = time.perf_counter() - t0
         n_sites = len(device.mesh.sites)
         log(f"  {n_sites} sites, grid {solver.maps.shape}, multigrid"
             f" {solver.amg.shapes}, factored links"
-            f" {solver.cfg.factor_link_phases}, chunk {solver.chunk_size}")
+            f" {solver.cfg.factor_link_phases}, chunk {solver.chunk_size},"
+            f" solver set-up {setup_s:.2f} s")
         assert solver.maps.shape == (256, 384), solver.maps.shape
         assert solver.cfg.factor_link_phases
 
@@ -580,43 +638,132 @@ def main() -> int:
             assert rel < 1e-10, name
         assert int(ref["card"].step) == 40 and not bool(ref["card"].failed)
 
-    with Phase("main path") as ph:
+    with Phase("bare chunk loop"):
         state = solver._initial_state()
         torch.cuda.synchronize()
         sk.reset_launch_counts()
         t0 = time.perf_counter()
-        cg_iters = []
-        for c in range(args.chunks):
+        chunks, cg_iters = 0, []
+        while True:
             tc = time.perf_counter()
             before = solver._failover_count
             state, outputs, exported = solver.chunk_fn(state)
+            chunks += 1
+            diag = exported["diagnostics"].cpu().numpy()
+            n_valid = int(outputs.valid.sum())
             cg_iters.append(outputs.cg_iterations.float().mean().item())
-            log(f"  chunk {c}: {time.perf_counter() - tc:.2f} s, failover"
-                f" {solver._failover_count - before}, t ="
-                f" {state.time.item():.4f}, dt = {state.prev_dt.item():.3e},"
-                f" mean CG its {cg_iters[-1]:.2f}")
+            log(f"  chunk {chunks - 1}: {time.perf_counter() - tc:.2f} s,"
+                f" failover {solver._failover_count - before}, t ="
+                f" {diag[0]:.4f}, dt = {diag[1]:.3e}, mean CG its"
+                f" {cg_iters[-1]:.2f}")
+            if diag[4] or n_valid < solver.chunk_size:
+                break
         torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in sk.KERNELS}
-    steps = args.chunks * solver.chunk_size
-    rewound = solver._failover_count * solver.chunk_size
+        loop_s = time.perf_counter() - t0
+        loop_launches = {fn.__name__: fn.launches for fn in sk.KERNELS}
+    loop_steps = int(state.step)
+    loop_slots = (chunks + solver._failover_count) * solver.chunk_size
     psi_abs = torch.sqrt(state.psi_r**2 + state.psi_i**2)
     psi_sites = solver.maps.grid_to_site(psi_abs.cpu().numpy())
-    log(f"  sites {n_sites}, grid {solver.maps.shape}, {steps} steps in"
-        f" {elapsed:.2f} s = {steps / elapsed:.2f} steps/s (failover"
-        f" re-runs included), failovers {solver._failover_count}, mean CG"
-        f" its {np.mean(cg_iters):.3f}, |psi| in [{psi_sites.min():.4f},"
-        f" {psi_sites.max():.4f}], launches {launches}")
-    assert int(state.step) == steps, (int(state.step), steps)
-    assert not bool(state.failed)
+    log(f"  sites {n_sites}, {loop_steps} steps in {chunks} chunks,"
+        f" {loop_slots} step slots executed (robust re-runs included),"
+        f" {loop_s:.2f} s = {loop_steps / loop_s:.2f} steps/s"
+        f" ({loop_steps / (loop_s + setup_s):.2f} with the"
+        f" {setup_s:.2f} s solver set-up), failovers"
+        f" {solver._failover_count}, mean CG its {np.mean(cg_iters):.3f},"
+        f" |psi| in [{psi_sites.min():.4f}, {psi_sites.max():.4f}],"
+        f" launches {loop_launches}")
+    assert not bool(state.failed) and bool(state.done)
     for name in ("psi_r", "psi_i", "mu", "supercurrent", "normal_current"):
         assert bool(torch.isfinite(getattr(state, name)).all()), name
     assert tuple(state.psi_r.shape) == (256, 384)
-    assert launches["fused_psi_update"] >= steps + rewound
-    assert launches["fused_poisson_rhs"] == steps + rewound
+    assert loop_launches["fused_psi_update"] >= loop_slots
+    assert loop_launches["fused_poisson_rhs"] == loop_slots
 
-    with Phase("where the time goes (from the final state)"):
-        time_breakdown(solver, state)
+    with Phase("solve() through the Runner"), \
+            tempfile.TemporaryDirectory() as tmp:
+        from tdgl_tpu_torch.solver.runner import DataHandler
+
+        path = os.path.join(tmp, "solve.h5")
+        # Where solve()'s wall goes: solver set-up, chunks (device steps
+        # and the failover read), snapshot and checkpoint writes, and the
+        # Solution's load and group; the rest is the mesh and fixed
+        # arrays, the Runner's reads from the device and grid-to-mesh
+        # conversion.
+        spans = {"set-up": [], "chunks": [], "writes": [], "Solution": []}
+        restores = [
+            timed_calls(ttdgl.TDGLSolver, ("__init__",), spans["set-up"]),
+            timed_calls(ttdgl.TDGLSolver, ("_failover_chunk_fn",),
+                        spans["chunks"]),
+            timed_calls(DataHandler, ("save_time_step", "save_checkpoint"),
+                        spans["writes"]),
+            timed_calls(ttdgl.Solution, ("__init__", "to_hdf5"),
+                        spans["Solution"]),
+        ]
+        solver_log = logging.getLogger("solver")
+        failovers = FailoverCount()
+        level = solver_log.level
+        solver_log.setLevel(logging.INFO)
+        solver_log.addHandler(failovers)
+        try:
+            torch.cuda.synchronize()
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            solution = ttdgl.solve(
+                device, ttdgl.SolverOptions(output_file=path, **options),
+                torch_device="cuda", **inputs)
+            torch.cuda.synchronize()
+            solve_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in sk.KERNELS}
+        finally:
+            for restore in restores:
+                restore()
+            solver_log.removeHandler(failovers)
+            solver_log.setLevel(level)
+        file_bytes = os.path.getsize(solution.path)
+        t0 = time.perf_counter()
+        reread = ttdgl.Solution.from_hdf5(solution.path)
+        same = reread.equals(solution)
+        read_s = time.perf_counter() - t0
+        dyn = solution.dynamics
+        snapshots = solution.data_range[1]
+        solve_steps = int(solution.tdgl_data.state["step"])
+        solve_slots = (snapshots + failovers.n) * solver.chunk_size
+        psi_abs = np.abs(solution.tdgl_data.psi)
+        moment = solution.magnetic_moment()
+        voltage = dyn.mean_voltage()
+    log(f"  solve(): {solve_steps} steps ({len(dyn.dt)} recorded dt),"
+        f" {solve_s:.2f} s wall = {solve_steps / solve_s:.2f} steps/s"
+        f" (bare chunk loop, phase 6: {loop_steps / loop_s:.2f} steps/s,"
+        f" {loop_steps / (loop_s + setup_s):.2f} with its set-up); solve()"
+        f" wall - bare loop - set-up: {solve_s - loop_s - setup_s:.2f} s")
+    span_s = {name: sum(v) for name, v in spans.items()}
+    log(f"  snapshots {snapshots} after step 0, failovers {failovers.n},"
+        f" {solve_slots} step slots executed; snapshot writes (snapshot +"
+        f" checkpoint) {len(spans['writes'])} calls,"
+        f" {span_s['writes']:.3f} s in all,"
+        f" {span_s['writes'] / max(snapshots, 1):.4f} s per snapshot; file"
+        f" {file_bytes} bytes; re-read {read_s:.2f} s")
+    log(f"  solve() wall {solve_s:.3f} s: "
+        + ", ".join(f"{name} {sec:.3f} s" for name, sec in span_s.items())
+        + ", rest (mesh and fixed arrays, device reads, grid-to-mesh"
+        f" conversion) "
+        f"{solve_s - sum(span_s.values()):.3f} s")
+    log(f"  mean probe voltage {voltage:.6g} V0, magnetic moment"
+        f" {moment.magnitude:.6g} {moment.units}, |psi| in [{psi_abs.min():.4f},"
+        f" {psi_abs.max():.4f}], launches {launches},"
+        f" Solution.from_hdf5(path).equals(solution): {same}")
+    assert same
+    assert np.isfinite(psi_abs).all() and np.isfinite(dyn.mu).all()
+    assert np.isfinite(voltage) and np.isfinite(moment.magnitude)
+    assert len(dyn.dt) == solve_steps and snapshots >= 2
+    assert launches["fused_psi_update"] >= solve_slots
+    assert launches["fused_poisson_rhs"] == solve_slots
+
+    with Phase("where the time goes (from phase 6's final state)"):
+        time_breakdown(solver, state._replace(
+            end_time=torch.full_like(state.time, 1e9),
+            done=torch.zeros_like(state.done)))
 
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
@@ -635,7 +782,8 @@ def main() -> int:
             ms=fac["ms"], plain_ms=fac["plain_ms"],
             bound_ms=fac["bound_ms"], bound_by=fac["bound_by"],
             library_ms=None, bound_share=fac["bound_share"],
-            launches_per_step=launches[name] / (steps + rewound),
+            launches_per_step=launches[name] / solve_slots,
+            chunk_loop_launches=loop_launches[name],
             cold_ms=fac["cold_ms"], paced_ms=fac["paced_ms"],
             raw_ms=timings[name]["raw"]["ms"],
         )

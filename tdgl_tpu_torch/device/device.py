@@ -20,6 +20,7 @@ import numpy as np
 
 from ..fv.mesh import Mesh
 from ..fv.util import get_oriented_boundary
+from ..utils import h5lite
 from ..utils.units import Quantity, ureg
 from .layer import Layer
 from .meshing import generate_mesh
@@ -672,7 +673,7 @@ class Device:
     # -- serialization -------------------------------------------------------------
     def to_hdf5(
         self,
-        path_or_group: Union[str, h5py.File, h5py.Group],
+        path_or_group: Union[str, h5lite.File, h5lite.Group],
         save_mesh: bool = True,
     ) -> None:
         """Save the device; same schema as the reference
@@ -684,9 +685,7 @@ class Device:
             if os.path.exists(path):
                 raise IOError(f"Path already exists: {path}")
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-            import h5py
-
-            context = h5py.File(path, "x")
+            context = h5lite.File(path, "x")
         else:
             context = nullcontext(path_or_group)
         with context as f:
@@ -707,13 +706,11 @@ class Device:
 
     @classmethod
     def from_hdf5(
-        cls, path_or_group: Union[str, h5py.File, h5py.Group]
+        cls, path_or_group: Union[str, h5lite.File, h5lite.Group]
     ) -> "Device":
         """Load a device saved with :meth:`to_hdf5`."""
         if isinstance(path_or_group, str):
-            import h5py
-
-            context = h5py.File(path_or_group, "r")
+            context = h5lite.File(path_or_group, "r")
         else:
             context = nullcontext(path_or_group)
         terminals = holes = probe_points = mesh = None

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ..utils import h5lite
 
 
 class Layer:
@@ -64,7 +65,7 @@ class Layer:
     _FIELDS = ("london_lambda", "coherence_length", "thickness", "conductivity",
                "u", "gamma", "z0")
 
-    def to_hdf5(self, h5_group: h5py.Group) -> None:
+    def to_hdf5(self, h5_group: h5lite.Group) -> None:
         """Save to an HDF5 group."""
         for field in self._FIELDS:
             value = getattr(self, field)
@@ -72,7 +73,7 @@ class Layer:
                 h5_group.attrs[field] = value
 
     @staticmethod
-    def from_hdf5(h5_group: h5py.Group) -> "Layer":
+    def from_hdf5(h5_group: h5lite.Group) -> "Layer":
         """Load from an HDF5 group."""
         kwargs = {f: h5_group.attrs.get(f) for f in Layer._FIELDS}
         return Layer(**kwargs)

@@ -26,6 +26,7 @@ from ..geometry import (
     polygon_centroid,
     rotate as rotate_coords,
 )
+from ..utils import h5lite
 from .clipping import clip_polygons
 
 logger = logging.getLogger(__name__)
@@ -427,7 +428,7 @@ class Polygon:
         ax.set_aspect("equal")
         return ax
 
-    def to_hdf5(self, h5_group: h5py.Group) -> None:
+    def to_hdf5(self, h5_group: h5lite.Group) -> None:
         """Save to an HDF5 group."""
         if self.name is not None:
             h5_group.attrs["name"] = self.name
@@ -435,7 +436,7 @@ class Polygon:
         h5_group["points"] = self._points
 
     @classmethod
-    def from_hdf5(cls, h5_group: h5py.Group) -> "Polygon":
+    def from_hdf5(cls, h5_group: h5lite.Group) -> "Polygon":
         """Load from an HDF5 group."""
         return cls(
             name=h5_group.attrs.get("name", None),

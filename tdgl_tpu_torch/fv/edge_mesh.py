@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import h5lite
 from .util import get_dual_edge_lengths, get_edges
 
 
@@ -75,13 +76,13 @@ class EdgeMesh:
     _FIELDS = ("centers", "edges", "boundary_edge_indices", "directions",
                "edge_lengths", "dual_edge_lengths")
 
-    def to_hdf5(self, h5group: h5py.Group) -> None:
+    def to_hdf5(self, h5group: h5lite.Group) -> None:
         """Save to an HDF5 group (same schema as the reference)."""
         for field in self._FIELDS:
             h5group[field] = getattr(self, field)
 
     @classmethod
-    def from_hdf5(cls, h5group: h5py.Group) -> "EdgeMesh":
+    def from_hdf5(cls, h5group: h5lite.Group) -> "EdgeMesh":
         """Load from an HDF5 group."""
         missing = [f for f in cls._FIELDS if f not in h5group]
         if missing:

@@ -9,6 +9,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ..utils import h5lite
 from .edge_mesh import EdgeMesh
 from .util import (
     build_voronoi_polygons,
@@ -283,7 +284,7 @@ class Mesh:
             ax.plot(*centroids.T, marker=marker, ls="", color=centroid_color)
         return ax
 
-    def to_hdf5(self, h5group: h5py.Group, compress: bool = False) -> None:
+    def to_hdf5(self, h5group: h5lite.Group, compress: bool = False) -> None:
         """Save the mesh; same schema as the reference
         (``tdgl/finite_volume/mesh.py:345-368``)."""
         h5group["sites"] = self.sites
@@ -303,7 +304,7 @@ class Mesh:
             h5group["voronoi_split_indices"] = split_indices
 
     @staticmethod
-    def is_restorable(h5group: h5py.Group) -> bool:
+    def is_restorable(h5group: h5lite.Group) -> bool:
         """Whether the group holds everything needed to restore without
         recomputation."""
         required = (
@@ -313,7 +314,7 @@ class Mesh:
         return all(key in h5group for key in required)
 
     @staticmethod
-    def from_hdf5(h5group: h5py.Group) -> "Mesh":
+    def from_hdf5(h5group: h5lite.Group) -> "Mesh":
         """Load a mesh from HDF5, recomputing the dual if necessary."""
         if not ("sites" in h5group and "elements" in h5group):
             raise IOError("Cannot load mesh: missing sites/elements.")

@@ -3,7 +3,8 @@
 API parity with the reference ``tdgl/parameter.py:66-439`` (``Parameter``,
 ``CompositeParameter``, ``Constant``): callables of ``(x, y[, z], *, t)`` with
 signature validation, operator algebra, optional result caching for
-time-dependent parameters, and cloudpickle round-trips.
+time-dependent parameters, and pickle round-trips (by value with
+cloudpickle where it is installed, by reference without it).
 
 TPU extension: a Parameter created with ``jittable=True`` promises that
 ``func`` is jax-traceable. The solver then evaluates it *inside* the compiled
@@ -16,6 +17,7 @@ from __future__ import annotations
 import hashlib
 import inspect
 import operator
+import pickle
 from numbers import Number
 from typing import Callable, Optional, Union
 
@@ -36,6 +38,23 @@ def _describe(func: Callable) -> str:
         return f"{func.__name__}{sig}"
     except (TypeError, ValueError):
         return repr(func)
+
+
+def _dump_callable(obj):
+    """``obj`` as cloudpickle bytes where cloudpickle is installed (it
+    pickles lambdas and closures by value); else ``obj`` itself, which the
+    enclosing pickle stores by reference to its module."""
+    try:
+        import cloudpickle
+    except ImportError:
+        return obj
+    return cloudpickle.dumps(obj)
+
+
+def _load_callable(state):
+    # A cloudpickle stream is a pickle stream; functions pickled by value
+    # need cloudpickle installed to load.
+    return pickle.loads(state) if isinstance(state, bytes) else state
 
 
 class Parameter:
@@ -224,19 +243,16 @@ class Parameter:
         td = ", time_dependent=True" if self.time_dependent else ""
         return f"Parameter<{self.func.__name__}({kw}){td}>"
 
-    # cloudpickle handles the function; drop the cache on pickling.
+    # cloudpickle (where installed) handles the function; drop the cache on
+    # pickling.
     def __getstate__(self):
-        import cloudpickle
-
         state = self.__dict__.copy()
         state["_cache"] = {}
-        state["func"] = cloudpickle.dumps(state["func"])
+        state["func"] = _dump_callable(state["func"])
         return state
 
     def __setstate__(self, state):
-        import cloudpickle
-
-        state["func"] = cloudpickle.loads(state["func"])
+        state["func"] = _load_callable(state["func"])
         self.__dict__.update(state)
 
 
@@ -343,19 +359,15 @@ class CompositeParameter(Parameter):
         )
 
     def __getstate__(self):
-        import cloudpickle
-
         state = self.__dict__.copy()
         state["_cache"] = {}
-        state["left"] = cloudpickle.dumps(state["left"])
-        state["right"] = cloudpickle.dumps(state["right"])
+        state["left"] = _dump_callable(state["left"])
+        state["right"] = _dump_callable(state["right"])
         return state
 
     def __setstate__(self, state):
-        import cloudpickle
-
-        state["left"] = cloudpickle.loads(state["left"])
-        state["right"] = cloudpickle.loads(state["right"])
+        state["left"] = _load_callable(state["left"])
+        state["right"] = _load_callable(state["right"])
         self.__dict__.update(state)
 
 

@@ -1,2 +1,3 @@
 from .options import SolverOptions, SolverOptionsError, SparseSolver
+from .solve import solve
 from .solver import TDGLSolver

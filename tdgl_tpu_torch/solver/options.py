@@ -56,8 +56,10 @@ class SolverOptions:
         pause_on_interrupt: Pause interactively on Ctrl-C.
         save_every: Steps between saved snapshots.
         progress_interval: Steps between log-based progress reports
-            (0 disables; a tqdm bar is shown instead).
-        monitor: Launch the live-monitor subprocess.
+            (0 disables; a tqdm bar is shown instead where tqdm is
+            installed, else progress is logged after every chunk).
+        monitor: Launch the live-monitor subprocess (not ported:
+            ``solve()`` raises ``NotImplementedError``).
         monitor_update_interval: Monitor poll period in seconds.
         include_screening: Self-consistently include the induced vector
             potential.
@@ -71,10 +73,9 @@ class SolverOptions:
         steps_per_chunk: TDGL steps fused into one compiled scan between host
             synchronizations. Defaults to ``save_every`` (snapshots align with
             chunk boundaries).
-        profile_dir: If set, wrap the whole run in ``jax.profiler.trace``
-            writing a TensorBoard-compatible XLA trace to this directory
-            (device timelines, HLO cost breakdowns). TPU-native replacement
-            for the reference's cProfile-based tracing.
+        profile_dir: If set, wrap the whole run in ``torch.profiler`` and
+            write its chrome trace (host ops and, on the card, device
+            kernels) to ``trace.json`` in this directory.
         save_checkpoints: Overwrite a full-state ``checkpoint`` group in
             the output file at every snapshot, enabling exact mid-run
             resume via ``solve(resume_from=path)`` (see the field comment
@@ -265,7 +266,7 @@ class SolverOptions:
     unstructured_tpu_site_limit: Optional[int] = 30_000
     amg_coarsening: Optional[int] = None  # aggregate size (None = auto)
     steps_per_chunk: Optional[int] = None
-    profile_dir: Optional[str] = None  # write a jax.profiler trace here
+    profile_dir: Optional[str] = None  # write a torch.profiler trace here
     # Fused single-pass Pallas kernels for the stencil step body (psi
     # update, Poisson RHS). None = auto = OFF: measured on the 50k
     # benchmark they lose to XLA's roll-chain formulation (XLA already

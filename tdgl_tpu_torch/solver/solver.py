@@ -4,21 +4,23 @@ Port of the structured, unscreened, static-input branch of
 :mod:`tdgl_tpu.solver.solver`: the same constructor, nondimensionalisation
 (A in units of A0, currents via ``J_scale = 4 (I/L)/K0``), terminal
 boundary conditions, option resolution, fast/robust chunk programs with
-chunk failover, and initial state. Tensors live on the explicit
-``torch_device`` the caller passes; nothing guesses a device.
+chunk failover, initial state, and ``solve()`` with the Runner, the HDF5
+output file and the :class:`~tdgl_tpu_torch.Solution`. Tensors live on
+``torch_device``: the card (``"cuda"``) unless the caller asks for the
+CPU.
 
-The entry points are ``TDGLSolver(...)``, ``solver._initial_state()`` and
-``solver.chunk_fn(state)``. What this package does not run yet raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1): ``solve()``
-with its HDF5 output, time-dependent inputs, screening, seed solutions
-and resume, and unstructured meshes.
+What this package does not run yet raises ``NotImplementedError`` naming
+its ROADMAP item (Queue 1): time-dependent inputs, screening, seed
+solutions and resume, unstructured meshes, and the live monitor.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
 import logging
+from datetime import datetime
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -33,6 +35,7 @@ from ..sources.constant import ConstantField
 from ..utils.units import ureg
 from .grid_step import GridState, make_grid_chunk_fn
 from .options import SolverOptions, SolverOptionsError
+from .runner import DataHandler, Runner
 from .step import StepConfig
 
 logger = logging.getLogger("solver")
@@ -43,6 +46,25 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to tdgl_tpu_torch yet (ROADMAP Queue 1:"
         f" {item}); use tdgl_tpu for it."
     )
+
+
+class UniformEpsilon:
+    """``disorder_epsilon`` given as a number: ``epsilon(r) = value`` at
+    every site. A module-level class, so the solution file can store it
+    with the standard library's pickle (the JAX package wraps the number
+    in a local function, which needs cloudpickle)."""
+
+    def __init__(self, value: float):
+        self.value = float(value)
+
+    def __call__(self, r):
+        return self.value * np.ones(len(r))
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, UniformEpsilon) and other.value == self.value
+
+    def __repr__(self) -> str:
+        return f"UniformEpsilon({self.value!r})"
 
 
 def validate_terminal_currents(
@@ -90,9 +112,10 @@ class TDGLSolver:
         disorder_epsilon: Float (<= 1) or time-independent callable giving
             the local critical temperature parameter epsilon(r).
         seed_solution: Not supported yet (must be None).
-        torch_device: Where every tensor of the solve lives (keyword-only,
-            required): ``"cuda"`` runs the hand-written kernels, ``"cpu"``
-            their plain PyTorch versions.
+        torch_device: Where every tensor of the solve lives (keyword-only):
+            ``"cuda"`` (the default) runs the hand-written kernels and
+            raises where CUDA is not available; ``"cpu"`` runs their plain
+            PyTorch versions.
     """
 
     def __init__(
@@ -104,7 +127,7 @@ class TDGLSolver:
         disorder_epsilon: Union[Callable, float] = 1.0,
         seed_solution=None,
         *,
-        torch_device: Union[str, torch.device],
+        torch_device: Union[str, torch.device] = "cuda",
     ):
         self.torch_device = torch.device(torch_device)
         if self.torch_device.type == "cuda" and not torch.cuda.is_available():
@@ -198,11 +221,7 @@ class TDGLSolver:
                 (spec.kwonlydefaults or {}).get("vectorized", False)
             )
         else:
-            value = float(disorder_epsilon)
-
-            def disorder_epsilon(r, *, _value=value):
-                return _value * np.ones(len(r))
-
+            disorder_epsilon = UniformEpsilon(disorder_epsilon)
             dynamic_epsilon = False
             self.vectorized_epsilon = True
         if dynamic_epsilon:
@@ -603,7 +622,93 @@ class TDGLSolver:
             induced_vector_potential=g2e(ex["induced_vector_potential"]),
         )
 
+    # -- main entry point ----------------------------------------------------------
+    def _mesh_fingerprint(self) -> str:
+        """SHA1 of the dimensionless mesh geometry (sites + elements).
+
+        Stored in every checkpoint (the JAX package verifies it on
+        resume): padded grid shapes alone can coincide for different
+        meshes."""
+        h = hashlib.sha1()
+        h.update(np.ascontiguousarray(self.mesh.sites, np.float64).tobytes())
+        h.update(np.ascontiguousarray(self.mesh.elements, np.int64).tobytes())
+        return h.hexdigest()
+
     def solve(self, resume_from: Optional[str] = None):
-        """Not ported yet: drive ``chunk_fn`` directly."""
-        raise _not_ported("TDGLSolver.solve() (Runner, HDF5 output,"
-                          " Solution)", "solve(), Runner and Solution")
+        """Run the simulation; returns a :class:`tdgl_tpu_torch.Solution`
+        (or None if cancelled during thermalization).
+
+        Writes the standard output file (``options.output_file``, or a
+        temporary file deleted on return when None): the mesh, the fixed
+        arrays, a snapshot every ``save_every`` steps, the ``checkpoint``
+        group, and the ``solution`` group. Every callable argument is
+        checked to be storable before any step runs.
+
+        Args:
+            resume_from: Not ported yet (must be None).
+        """
+        from ..solution.solution import Solution, check_picklable
+
+        if resume_from is not None:
+            raise _not_ported("resume_from", "checkpoint and resume")
+        options = self.options
+        if options.monitor:
+            raise _not_ported("The live monitor (SolverOptions.monitor)",
+                              "visualization")
+        start_time = datetime.now()
+        options.validate()
+        check_picklable(applied_vector_potential=self.applied_vector_potential,
+                        terminal_currents=self.terminal_currents,
+                        disorder_epsilon=self.disorder_epsilon)
+
+        running = {"dt": 1}
+        if self.probe_points is not None:
+            running["mu"] = len(self.probe_points)
+            running["theta"] = len(self.probe_points)
+
+        state = self._initial_state()
+        fixed = {"applied_vector_potential": self.current_A_applied,
+                 "epsilon": self.epsilon}
+
+        with DataHandler(output_file=options.output_file,
+                         logger=logger) as data_handler:
+            data_handler.save_mesh(self.mesh)
+            data_handler.save_fixed_values(fixed)
+            logger.info(
+                "Simulation started at %s on %s (chunk size %d).",
+                start_time, self.torch_device, self.chunk_size,
+            )
+            runner = Runner(
+                chunk_fn=self.chunk_fn,
+                initial_state=state,
+                options=options,
+                data_handler=data_handler,
+                state_to_arrays=self._state_to_arrays,
+                running_names_and_sizes=running,
+                chunk_size=self.chunk_size,
+                initial_export=self._initial_export,
+                checkpoint_meta={
+                    "backend": "grid",
+                    "mesh_fingerprint": self._mesh_fingerprint(),
+                },
+                logger=logger,
+            )
+            data_was_generated = runner.run()
+            end_time = datetime.now()
+            logger.info("Simulation ended at %s (took %s).", end_time,
+                        end_time - start_time)
+            if not data_was_generated:
+                return None
+            # The Solution reads the file and appends its group.
+            data_handler.output_file.close()
+            solution = Solution(
+                device=self.device,
+                path=data_handler.output_path,
+                options=options,
+                applied_vector_potential=self.applied_vector_potential,
+                terminal_currents=self.terminal_currents,
+                disorder_epsilon=self.disorder_epsilon,
+                total_seconds=(end_time - start_time).total_seconds(),
+            )
+            solution.to_hdf5()
+            return solution

@@ -253,3 +253,33 @@ def test_chunk_runs_through_kernels_and_matches_cpu(cuda_device,
         a = getattr(g_state, name).cpu()
         b = getattr(c_state, name)
         assert (a - b).abs().max() <= 1e-10 * b.abs().max(), name
+
+
+def test_solve_on_card_matches_cpu(mesh_device, cuda_device, tmp_path):
+    """``TDGLSolver.solve()`` on the card: float64 at a fixed dt, the
+    output file's last snapshot and dynamics against the same solve on
+    the CPU (1e-10 relative), with every step through both kernels."""
+    opts = dict(solve_time=0.04, dt_init=1e-3, adaptive=False, save_every=20,
+                dtype="float64", field_units="mT", current_units="uA")
+    inputs = dict(applied_vector_potential=0.5,
+                  terminal_currents=dict(source=3.0, drain=-3.0))
+    out = {}
+    for where in ("cuda", "cpu"):
+        solver = ttdgl.TDGLSolver(mesh_device, ttdgl.SolverOptions(
+            output_file=str(tmp_path / f"{where}.h5"), **opts),
+            torch_device=where, **inputs)
+        step_kernels.reset_launch_counts()
+        out[where] = solver.solve()
+        if where == "cuda":
+            launches = [fn.launches for fn in step_kernels.KERNELS]
+            slots = ((out[where].data_range[1] + solver._failover_count)
+                     * solver.chunk_size)
+    card, host = out["cuda"], out["cpu"]
+    assert launches[1] == slots and launches[0] >= slots
+    assert card.data_range == host.data_range
+    for name in ("psi", "mu", "supercurrent", "normal_current"):
+        a, b = getattr(card.tdgl_data, name), getattr(host.tdgl_data, name)
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max(), name
+    assert np.abs(card.dynamics.mu - host.dynamics.mu).max() <= \
+        1e-10 * np.abs(host.dynamics.mu).max()
+    assert ttdgl.Solution.from_hdf5(card.path).equals(card)

@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import tdgl_tpu as jtdgl
 import tdgl_tpu_torch as ttdgl
@@ -26,6 +27,15 @@ from tdgl_tpu.solver.solver import TDGLSolver as JaxSolver
 from tdgl_tpu_torch import convert
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_blas_thread():
+    """One BLAS and OpenMP thread: the multigrid set-up's dense
+    pseudo-inverse (numpy's OpenBLAS) otherwise spins eight threads on a
+    CPU the other test workers keep busy."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _transport_device(pkg):
@@ -127,7 +137,12 @@ def test_unported_paths_raise():
             include_screening=True, **opts), torch_device="cpu")
     solver = ttdgl.TDGLSolver(device, ttdgl.SolverOptions(**opts),
                               torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="solve"):
-        solver.solve()
-    with pytest.raises(TypeError):
-        ttdgl.TDGLSolver(device, ttdgl.SolverOptions(**opts))
+    with pytest.raises(NotImplementedError, match="resume"):
+        solver.solve(resume_from="previous.h5")
+    with pytest.raises(NotImplementedError, match="visualization"):
+        ttdgl.TDGLSolver(device, ttdgl.SolverOptions(monitor=True, **opts),
+                         torch_device="cpu").solve()
+    # The default device is the card: without CUDA the solver raises.
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ttdgl.TDGLSolver(device, ttdgl.SolverOptions(**opts))

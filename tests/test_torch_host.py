@@ -9,12 +9,22 @@ the port carries verbatim copies of the JAX package's host modules.
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import tdgl_tpu as jtdgl
 import tdgl_tpu_torch as ttdgl
 from tdgl_tpu.solver.solver import TDGLSolver as JaxSolver
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_blas_thread():
+    """One BLAS and OpenMP thread: the multigrid set-up's dense
+    pseudo-inverse (numpy's OpenBLAS) otherwise spins eight threads on a
+    CPU the other test workers keep busy."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _box_device(pkg):

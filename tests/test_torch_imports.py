@@ -2,8 +2,9 @@
 chip_smoke.py).
 
 The port must run where neither jax nor the JAX package, nor h5py,
-matplotlib or cloudpickle, is installed: no module may import ``jax`` or
-``tdgl_tpu`` anywhere, module-level imports are limited to the standard
+matplotlib, cloudpickle or tqdm, is installed: no module may import ``jax``
+or ``tdgl_tpu`` anywhere, or ``h5py`` at all (the port writes HDF5 through
+its own ``utils/h5lite``), module-level imports are limited to the standard
 library, numpy, scipy, torch and the package itself, and ``triton``
 appears nowhere (the kernels are CUDA C++)."""
 
@@ -63,7 +64,11 @@ def test_package_has_modules(trees):
     names = {os.path.relpath(p, PKG) for p in trees}
     for required in ("convert.py", "ops/step_kernels.py", "ops/cg.py",
                      "ops/hexmg.py", "solver/grid_step.py",
-                     "solver/solver.py", "models/gtdgl_stencil.py"):
+                     "solver/solver.py", "models/gtdgl_stencil.py",
+                     "solver/runner.py", "solver/solve.py",
+                     "solution/solution.py", "solution/data.py",
+                     "solution/tri_interp.py", "utils/h5lite.py",
+                     "about.py", "version.py", "em.py", "fluxoid.py"):
         assert required in names
 
 
@@ -72,6 +77,14 @@ def test_no_jax_or_reference_package_anywhere(trees):
            for p, tree in trees.items()
            for name, line in _imports(tree, module_level_only=False)
            if name in ("jax", "jaxlib", "tdgl_tpu")]
+    assert not bad, bad
+
+
+def test_no_h5py_anywhere(trees):
+    bad = [(os.path.relpath(p, PKG), line)
+           for p, tree in trees.items()
+           for name, line in _imports(tree, module_level_only=False)
+           if name == "h5py"]
     assert not bad, bad
 
 
