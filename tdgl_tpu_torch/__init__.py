@@ -2,8 +2,9 @@
 
 Time-dependent Ginzburg-Landau simulation of thin-film superconductors on
 an NVIDIA GPU. The JAX package ``tdgl_tpu`` is the reference; this package
-keeps its module paths and names. It covers the structured (hex-lattice),
-unscreened, static-input solver path: build a :class:`Device`, mesh it with
+keeps its module paths and names. It covers the structured (hex-lattice)
+solver path, with screening and with static, traced or host-evaluated
+time-dependent inputs: build a :class:`Device`, mesh it with
 ``make_mesh(structured=True)`` and call ``solve(device, options, ...)``,
 which runs on the card (``torch_device="cuda"``, the default) or on the
 CPU (``torch_device="cpu"``), writes the standard HDF5 output file and
@@ -22,7 +23,8 @@ from .solution.data import DynamicsData, TDGLData, get_current_through_paths
 from .solution.solution import BiotSavartField, BoundaryPhases, Solution
 from .solver.options import SolverOptions, SolverOptionsError, SparseSolver
 from .solver.solve import solve
-from .solver.solver import TDGLSolver
-from .sources import ConstantField
+from .solver.solver import TDGLSolver, jittable
+from .sources import ConstantField, CurrentLoop, LinearRamp, Scale
 from .utils.units import Quantity, UnitRegistry, ureg
 from .version import __version__, __version_info__
+from . import sources

@@ -6,7 +6,9 @@ accepts, so the same helpers also move the JAX package's arrays into this
 package: ``tdgl_tpu``'s ``StencilOperators``, ``HexMGData``, ``GridState``
 (or its ``export_grid_state_arrays`` dict), ``LinkPhases`` and
 ``FactoredLinkPhases`` convert field by field, which is how the tests feed
-both packages the same state.
+both packages the same state. The screening data converts too: either
+package's ``FFTScreeningData`` (the JAX package's split real/imaginary
+spectra become complex tensors) and the site-evaluation taps.
 
 Every array keeps its dtype, except that :func:`hexmg_to_torch` recasts
 the multigrid levels to the working dtype.
@@ -21,6 +23,7 @@ import torch
 
 from .fv.stencil_operators import StencilOperators
 from .models.gtdgl_stencil import FactoredLinkPhases, LinkPhases
+from .ops.fft_screening import FFTScreeningData
 from .ops.hexmg import HexMGData
 from .solver.grid_step import GridState
 
@@ -64,6 +67,32 @@ def link_phases_to_torch(U, device: DeviceLike):
     tensors, chosen by field names."""
     cls = (FactoredLinkPhases if hasattr(U, "cf") else LinkPhases)
     return cls(*(to_tensor(getattr(U, f), device) for f in cls._fields))
+
+
+def fft_screening_to_torch(fd, device: DeviceLike) -> FFTScreeningData:
+    """An ``FFTScreeningData`` (this package's complex spectra, or the JAX
+    package's ``Ghat_re``/``Ghat_im``/``G0hat_re``/``G0hat_im``) ->
+    complex tensors; the JAX package's DFT matrices are dropped."""
+    def spectrum(name):
+        if hasattr(fd, name + "_re"):
+            re = np.asarray(getattr(fd, name + "_re"))
+            out = np.empty(re.shape, np.result_type(re.dtype, np.complex64))
+            out.real = re
+            out.imag = np.asarray(getattr(fd, name + "_im"))
+            return to_tensor(out, device)
+        return to_tensor(getattr(fd, name), device)
+
+    return FFTScreeningData(Ghat=spectrum("Ghat"), G0hat=spectrum("G0hat"))
+
+
+def site_taps(taps):
+    """Site-evaluation taps (from either package's
+    ``build_site_interp_taps``) as a tuple of ``((dr, dc), value)`` with
+    Python ints and floats, or None."""
+    if taps is None:
+        return None
+    return tuple(tuple(((int(a), int(b)), float(v)) for (a, b), v in cls)
+                 for cls in taps)
 
 
 _EXPORT_TO_STATE = dict(

@@ -6,14 +6,20 @@
 // tdgl_tpu_torch.models.gtdgl_stencil: on each of the 3 edge classes the
 // supercurrent Im[conj(psi) (U psi_{+k} - psi)] / len, minus dA/dt, times
 // the dual length, divergence onto sites, times the inverse area, minus
-// the pre-scattered Neumann term. The (3, rows, cols) edge currents never
-// reach device memory.
+// the pre-scattered Neumann term. In the first form the (3, rows, cols)
+// edge currents never reach device memory; the second form (a non-null
+// `js`, the screened step's) also writes them, J_s = Im[conj(psi) (U
+// psi_{+k} - psi)] / len per class-k edge at its origin, from the same
+// registers: three more plane stores per site, no other change. Its plain
+// version is (poisson_rhs(sten, J_s, ...), J_s).
 //
 // What bounds it on the card: bytes. It reads pr, pi, inv_area, the
 // Neumann plane and 3 planes each of inv_len, dual and dA/dt (13 planes),
 // plus the link vectors (factored) or 6 link planes (raw), and writes one
-// plane. At (256, 384) float32: 14 planes, ~5.5 MB, 1.65 us at 3.35 TB/s
-// (factored); 20 planes, ~7.9 MB, 2.35 us (raw). About 2 flop per byte.
+// plane (four with J_s). At (256, 384) float32: 14 planes, ~5.5 MB, 1.65 us
+// at 3.35 TB/s (factored); 20 planes, ~7.9 MB, 2.35 us (raw); the J_s form
+// with raw links, the screened step's, 23 planes, ~9.0 MB, 2.70 us. About 2
+// flop per byte.
 //
 // Design (stencil_common.cuh): one block per 8 x 32 tile, 256 threads,
 // one site per thread, 384 blocks at (256, 384).
@@ -31,9 +37,10 @@
 //    from shared memory, times inv_area, minus the Neumann term.
 //
 // ptxas on the card (-Xptxas -v, sm_90a, CUDA 12.8), registers per thread
-// and static shared memory per block, no spills:
-//   float  factored 42 regs, 7,448 B     float  raw 48 regs, 6,392 B
-//   double factored 64 regs, 14,896 B    double raw 64 regs, 12,784 B
+// and static shared memory per block, no spills (after the slash: the J_s
+// form):
+//   float  factored 42/46 regs, 7,448 B    float  raw 48/57 regs, 6,392 B
+//   double factored 64/62 regs, 14,896 B   double raw 64/78 regs, 12,784 B
 
 #include "stencil_common.cuh"
 
@@ -50,11 +57,12 @@ struct RhsArgs {
   const T* inv_area;
   const T* neumann;
   T* rhs;
+  T* js;              // (3, rows, cols), written by the J_s form only
   int rows;
   int cols;
 };
 
-template <typename T, bool FACTORED>
+template <typename T, bool FACTORED, bool WRITE_JS>
 __global__ void __launch_bounds__(kThreads)
 poisson_rhs_kernel(const RhsArgs<T> a) {
   __shared__ T s_pr[kHalo];
@@ -125,6 +133,8 @@ poisson_rhs_kernel(const RhsArgs<T> a) {
       const T grad_i = ur * pi_p + ui * pr_p - pi;
       const T J = (pr * grad_i - pi * grad_r) * e_il[it];
       s_flux[e] = e_du[it] * (J - e_da[it]);
+      // Each tile site's own edges: J_s of the class-k edge at (er, ec).
+      if (WRITE_JS && in_tile(er, ec)) a.js[k * n + g.flat(er, ec)] = J;
     }
   }
   __syncthreads();
@@ -145,20 +155,24 @@ int launch_poisson_rhs(const T* pr, const T* pi, const T* ur, const T* ui,
                        const T* cf, const T* sf, const T* cg, const T* sg,
                        int factored, const T* inv_len, const T* dual,
                        const T* dA_dt, const T* inv_area, const T* neumann,
-                       T* rhs, int rows, int cols, void* stream) {
+                       T* rhs, T* js, int rows, int cols, void* stream) {
   if (!tiles_cover(rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
   RhsArgs<T> a;
   a.pr = pr; a.pi = pi;
   a.link = Links<T>{ur, ui, cf, sf, cg, sg};
   a.inv_len = inv_len; a.dual = dual; a.dA_dt = dA_dt;
-  a.inv_area = inv_area; a.neumann = neumann; a.rhs = rhs;
+  a.inv_area = inv_area; a.neumann = neumann; a.rhs = rhs; a.js = js;
   a.rows = rows; a.cols = cols;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid = tile_grid(rows, cols);
-  if (factored) {
-    poisson_rhs_kernel<T, true><<<grid, tile_block(), 0, s>>>(a);
+  if (factored && js != nullptr) {
+    poisson_rhs_kernel<T, true, true><<<grid, tile_block(), 0, s>>>(a);
+  } else if (factored) {
+    poisson_rhs_kernel<T, true, false><<<grid, tile_block(), 0, s>>>(a);
+  } else if (js != nullptr) {
+    poisson_rhs_kernel<T, false, true><<<grid, tile_block(), 0, s>>>(a);
   } else {
-    poisson_rhs_kernel<T, false><<<grid, tile_block(), 0, s>>>(a);
+    poisson_rhs_kernel<T, false, false><<<grid, tile_block(), 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -170,11 +184,11 @@ int launch_poisson_rhs(const T* pr, const T* pi, const T* ur, const T* ui,
                       const T* cf, const T* sf, const T* cg, const T* sg,     \
                       int factored, const T* inv_len, const T* dual,          \
                       const T* dA_dt, const T* inv_area, const T* neumann,    \
-                      T* rhs, int rows, int cols, void* stream) {             \
+                      T* rhs, T* js, int rows, int cols, void* stream) {      \
     return tdgl::launch_poisson_rhs<T>(pr, pi, ur, ui, cf, sf, cg, sg,        \
                                        factored, inv_len, dual, dA_dt,        \
-                                       inv_area, neumann, rhs, rows, cols,    \
-                                       stream);                               \
+                                       inv_area, neumann, rhs, js, rows,      \
+                                       cols, stream);                         \
   }
 
 TDGL_RHS_ENTRY(tdgl_poisson_rhs_f32, float)

@@ -7,7 +7,10 @@
 // fixed sites, then the closed-form implicit-Euler quadratic with the
 // cancellation-free discriminant 1 + 4c - 4 Im(conj(w) z)^2. Outputs
 // psi_r, psi_i and |psi|^2 masked by `valid`, and the 0-d bool `ok`: no
-// valid site has a negative (or NaN) discriminant.
+// valid site has a negative (or NaN) discriminant. The update's old |psi|^2
+// is pr^2 + pi^2, or the plane `old_sq` where the caller passes one (the
+// screening fixed point updates its iterate with the step's starting
+// |psi|^2, tdgl_tpu/solver/grid_step.py:287); one extra plane read then.
 //
 // What bounds it on the card: bytes. It reads 11 site planes (pr, pi, mu,
 // eps, sym_diag, inv_area, fixed_mask, valid and the 3 weight planes w),
@@ -46,8 +49,9 @@
 //
 // ptxas on the card (-Xptxas -v, sm_90a, CUDA 12.8), registers per thread
 // and static shared memory per block, no spills (the 32-40 B stack frame
-// is sincos's slow argument reduction):
-//   float  factored 40 regs, 11,120 B    float  raw 48 regs, 10,064 B
+// is sincos's slow argument reduction); the optional old_sq operand took
+// float raw from 48 to 64 registers, at an unchanged time per call:
+//   float  factored 40 regs, 11,120 B    float  raw 64 regs, 10,064 B
 //   double factored 60 regs, 22,240 B    double raw 80 regs, 20,128 B
 
 #include "stencil_common.cuh"
@@ -58,6 +62,7 @@ template <typename T>
 struct PsiArgs {
   const T* pr;
   const T* pi;
+  const T* old_sq;    // nullable: |psi|^2 of the update, else pr^2 + pi^2
   const T* mu;
   const T* eps;
   const T* w;         // (3, rows, cols)
@@ -132,6 +137,7 @@ psi_update_kernel(const PsiArgs<T> a) {
   const T inv_a = __ldg(a.inv_area + i);
   const T fixed = __ldg(a.fixed + i);
   const T valid = __ldg(a.valid + i);
+  const T sq_in = a.old_sq != nullptr ? __ldg(a.old_sq + i) : T(0);
   const T dt = *a.dt;
 
   // 2. Stage psi and the link vectors.
@@ -165,7 +171,7 @@ psi_update_kernel(const PsiArgs<T> a) {
   const int h = hidx(lr, lc);
   const T pr = s_pr[h];
   const T pi = s_pi[h];
-  const T old_sq = pr * pr + pi * pi;
+  const T old_sq = a.old_sq != nullptr ? sq_in : pr * pr + pi * pi;
 
   T acc_r = T(0);
   T acc_i = T(0);
@@ -229,7 +235,8 @@ psi_update_kernel(const PsiArgs<T> a) {
 }
 
 template <typename T>
-int launch_psi_update(const T* pr, const T* pi, const T* mu, const T* eps,
+int launch_psi_update(const T* pr, const T* pi, const T* old_sq,
+                      const T* mu, const T* eps,
                       const T* w, const T* sym_diag, const T* inv_area,
                       const T* fixed, const T* valid, const T* ur,
                       const T* ui, const T* cf, const T* sf, const T* cg,
@@ -243,7 +250,7 @@ int launch_psi_update(const T* pr, const T* pi, const T* mu, const T* eps,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PsiArgs<T> a;
-  a.pr = pr; a.pi = pi; a.mu = mu; a.eps = eps; a.w = w;
+  a.pr = pr; a.pi = pi; a.old_sq = old_sq; a.mu = mu; a.eps = eps; a.w = w;
   a.sym_diag = sym_diag; a.inv_area = inv_area; a.fixed = fixed;
   a.valid = valid;
   a.link = Links<T>{ur, ui, cf, sf, cg, sg};
@@ -267,7 +274,8 @@ int launch_psi_update(const T* pr, const T* pi, const T* mu, const T* eps,
 }  // namespace tdgl
 
 #define TDGL_PSI_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const T* pr, const T* pi, const T* mu, const T* eps,    \
+  extern "C" int NAME(const T* pr, const T* pi, const T* old_sq,             \
+                      const T* mu, const T* eps,                              \
                       const T* w, const T* sym_diag, const T* inv_area,       \
                       const T* fixed, const T* valid, const T* ur,            \
                       const T* ui, const T* cf, const T* sf, const T* cg,     \
@@ -275,8 +283,9 @@ int launch_psi_update(const T* pr, const T* pi, const T* mu, const T* eps,
                       double u, T* out_r, T* out_i, T* out_sq,                \
                       unsigned int* flag, unsigned char* ok, int rows,        \
                       int cols, void* stream) {                               \
-    return tdgl::launch_psi_update<T>(pr, pi, mu, eps, w, sym_diag, inv_area, \
-                                      fixed, valid, ur, ui, cf, sf, cg, sg,   \
+    return tdgl::launch_psi_update<T>(pr, pi, old_sq, mu, eps, w, sym_diag,   \
+                                      inv_area, fixed, valid, ur, ui, cf, sf, \
+                                      cg, sg,                                 \
                                       factored, dt, gamma, u, out_r, out_i,   \
                                       out_sq, flag, ok, rows, cols, stream);  \
   }

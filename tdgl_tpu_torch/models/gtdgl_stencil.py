@@ -14,8 +14,10 @@ order), for structured meshes (:mod:`tdgl_tpu_torch.fv.stencil_operators`):
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import weakref
+from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..device.hexmesh import EDGE_OFFSETS
@@ -49,16 +51,22 @@ class LinkPhases(NamedTuple):
     uim: torch.Tensor
 
 
-def edge_link_phases(sten, A_edge: torch.Tensor) -> LinkPhases:
+def edge_link_phases(sten, A_edge: torch.Tensor,
+                     shifted: bool = True) -> LinkPhases:
     """Link variables ``U_k = exp(-i A.e_k)`` (plus shifted views).
 
     Args:
         sten: :class:`StencilOperators` of tensors.
         A_edge: ``(3, Rp, Cp, 2)`` vector potential at edge centers.
+        shifted: Also build the shifted views ``urm``/``uim`` (else they
+            are None: the stencils and kernels here read ``ur``/``ui``
+            only, so a step that rebuilds its links skips them).
     """
     a = edge_phase_angles(sten, A_edge)
     ur = torch.cos(a)
     ui = -torch.sin(a)
+    if not shifted:
+        return LinkPhases(ur, ui, None, None)
     urm = torch.stack([shift_m(ur[k], k) for k in range(3)])
     uim = torch.stack([shift_m(ui[k], k) for k in range(3)])
     return LinkPhases(ur, ui, urm, uim)
@@ -210,15 +218,89 @@ def divergence_on_sites(sten, F_edge: torch.Tensor) -> torch.Tensor:
     return acc * sten.inv_area.to(dt)
 
 
+def edge_quantity_to_sites(sten, F_edge: torch.Tensor) -> torch.Tensor:
+    """Average an edge flux onto site vectors in the reference's K0-unit
+    convention (site value = mean over incident edges of ``F_e e_hat / 2``).
+
+    Returns ``(Rp, Cp, 2)``.
+    """
+    dt = F_edge.dtype
+    dirs = sten.edge_dirs.to(dt)
+    dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=1, keepdim=True))
+    sx = torch.zeros_like(F_edge[0])
+    sy = torch.zeros_like(F_edge[0])
+    for k in range(3):
+        both = F_edge[k] + shift_m(F_edge[k], k)
+        sx = sx + both * dirs[k, 0]
+        sy = sy + both * dirs[k, 1]
+    denom = 2.0 * sten.counts.to(dt)
+    return torch.stack([sx / denom, sy / denom], dim=-1)
+
+
+class NeumannGather(NamedTuple):
+    """The Neumann scatter of a stencil as a padded gather table.
+
+    ``targets`` are the distinct boundary sites (flat grid indices);
+    ``table[t]`` lists, in increasing order, the positions ``j`` of the
+    ``nbl_*`` entries that land on ``targets[t]``, padded with ``2B`` (a
+    zero appended to the values). Summing a row left to right adds the
+    contributions in the order ``np.add.at`` does, with no atomics.
+    """
+
+    targets: torch.Tensor  # (T,) int64
+    table: torch.Tensor    # (T, M) int64
+
+
+# One gather table per stencil: id(nbl_idx) -> (weakref to it, table).
+_NEUMANN_GATHERS: Dict[int, tuple] = {}
+
+
+def neumann_gather(sten) -> NeumannGather:
+    """The :class:`NeumannGather` of ``sten``, built on the host from its
+    static ``nbl_idx`` on first use and then reused."""
+    key = id(sten.nbl_idx)
+    ref, gather = _NEUMANN_GATHERS.get(key, (None, None))
+    if ref is not None and ref() is sten.nbl_idx:
+        return gather
+    idx = sten.nbl_idx.detach().cpu().numpy().astype(np.int64)
+    order = np.argsort(idx, kind="stable")
+    targets, counts = np.unique(idx, return_counts=True)
+    width = int(counts.max()) if len(counts) else 0
+    table = np.full((len(targets), width), len(idx), dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    for m in range(width):
+        has = counts > m
+        table[has, m] = order[starts[has] + m]
+    dev = sten.nbl_idx.device
+    gather = NeumannGather(torch.from_numpy(targets).to(dev),
+                           torch.from_numpy(table).to(dev))
+    _NEUMANN_GATHERS[key] = (weakref.ref(sten.nbl_idx,
+                                         lambda _: _NEUMANN_GATHERS.pop(key,
+                                                                        None)),
+                             gather)
+    return gather
+
+
 def neumann_boundary_term(sten, mu_boundary: torch.Tensor) -> torch.Tensor:
     """Inhomogeneous Neumann BC contribution to the mu-Poisson RHS
-    (scatter of ``len_b/(2 a_i) * J_ext_b`` onto boundary sites)."""
+    (scatter of ``len_b/(2 a_i) * J_ext_b`` onto boundary sites).
+
+    Deterministic on every device: the contributions to each site are
+    gathered through :func:`neumann_gather` and summed in index order, so
+    the result equals the host's ``np.add.at`` bit for bit and repeats
+    from run to run (an ``index_add`` on the card runs as atomics).
+    """
     shape = sten.valid.shape
     vals = (sten.nbl_vals.to(mu_boundary.dtype)
             * mu_boundary[sten.nbl_col.long()])
     flat = torch.zeros(shape[0] * shape[1], dtype=mu_boundary.dtype,
                        device=mu_boundary.device)
-    return flat.index_add(0, sten.nbl_idx.long(), vals).reshape(shape)
+    gather = neumann_gather(sten)
+    rows = torch.cat([vals, vals.new_zeros(1)])[gather.table]
+    acc = vals.new_zeros(len(gather.targets))
+    for m in range(rows.shape[1]):
+        acc = acc + rows[:, m]
+    return flat.index_copy(0, gather.targets, acc).reshape(shape)
 
 
 class PsiUpdateResult(NamedTuple):

@@ -1,7 +1,8 @@
 """Native (C++) host-runtime kernels, bound via ctypes.
 
-The shared library is built on demand with ``g++ -O3`` and cached next to
-the source (rebuilt when the source changes). Every entry point has a pure
+The shared library is built on demand with ``g++ -O3 -march=native`` and
+cached next to the source, keyed by the source and the host's CPU (rebuilt
+when either changes, so a copy built on another machine is not loaded). Every entry point has a pure
 NumPy fallback, so the package works without a compiler; the native path
 accelerates the host-side geometry runtime (polygon booleans, containment,
 distances) by 1-2 orders of magnitude.
@@ -30,9 +31,23 @@ _load_attempted = False
 OK, DEGENERATE, OVERFLOWED = 0, 1, 2
 
 
+def _host_cpu() -> bytes:
+    """The CPU model and feature flags (``-march=native`` depends on
+    them), from ``/proc/cpuinfo`` where it exists."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        import platform
+
+        return platform.processor().encode()
+    keep = (b"model name", b"flags")
+    return b"\n".join(sorted({ln for ln in lines if ln.startswith(keep)}))
+
+
 def _build_library() -> Optional[str]:
     with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+        digest = hashlib.sha1(f.read() + _host_cpu()).hexdigest()[:12]
     lib_path = os.path.join(_HERE, f"_geometry_kernels_{digest}.so")
     if os.path.exists(lib_path):
         return lib_path

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA step kernels (``csrc/*.cu``).
 
-The kernels compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
+The kernels compile with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+process per source, all started together, and link into one shared
 library with a plain C interface, loaded through ``ctypes`` — no PyTorch
 headers and no ninja, so a cold build takes seconds. The build runs at
 first use, from the package's own sources, into ``tdgl_tpu_torch/_build/``
@@ -26,7 +27,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("psi_update.cu", "poisson_rhs.cu")
 HEADERS = ("stencil_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Filled by load_library(): build seconds, whether a cached library was
 # reused, the library path and nvcc's output (ptxas register/spill report).
@@ -77,20 +78,31 @@ def build_library() -> str:
         BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=True,
                           path=lib_path, log="")
         return lib_path
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # One nvcc per source, all at once; then one link.
+        objects = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj,
+                 os.path.join(CSRC_DIR, src)]
+                for src, obj in zip(SOURCES, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        out = os.path.join(tmp, "lib.so")
+        link = [nvcc, "-shared", "-o", out, *objects]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(out, lib_path)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False,
-                      path=lib_path, log=proc.stdout + proc.stderr)
+                      path=lib_path, log="".join(logs))
     return lib_path
 
 
@@ -109,14 +121,15 @@ def load_library() -> ctypes.CDLL:
     for name in ("tdgl_psi_update_f32", "tdgl_psi_update_f64"):
         fn = getattr(lib, name)
         fn.restype = i
-        # pr pi mu eps w sym_diag inv_area fixed valid ur ui cf sf cg sg
-        # factored dt gamma u out_r out_i out_sq flag ok rows cols stream
-        fn.argtypes = [p] * 15 + [i, p, d, d, p, p, p, p, p, i, i, p]
+        # pr pi old_sq mu eps w sym_diag inv_area fixed valid ur ui cf sf
+        # cg sg factored dt gamma u out_r out_i out_sq flag ok rows cols
+        # stream
+        fn.argtypes = [p] * 16 + [i, p, d, d, p, p, p, p, p, i, i, p]
     for name in ("tdgl_poisson_rhs_f32", "tdgl_poisson_rhs_f64"):
         fn = getattr(lib, name)
         fn.restype = i
         # pr pi ur ui cf sf cg sg factored inv_len dual dA_dt inv_area
-        # neumann rhs rows cols stream
-        fn.argtypes = [p] * 8 + [i] + [p] * 6 + [i, i, p]
+        # neumann rhs js rows cols stream
+        fn.argtypes = [p] * 8 + [i] + [p] * 7 + [i, i, p]
     _lib = lib
     return lib

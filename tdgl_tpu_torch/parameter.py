@@ -6,10 +6,12 @@ signature validation, operator algebra, optional result caching for
 time-dependent parameters, and pickle round-trips (by value with
 cloudpickle where it is installed, by reference without it).
 
-TPU extension: a Parameter created with ``jittable=True`` promises that
-``func`` is jax-traceable. The solver then evaluates it *inside* the compiled
-step function (no host callback per step), which is the fast path for
-time-dependent applied fields and disorder.
+Traced path: a Parameter created with ``jittable=True`` promises that
+``func`` takes torch tensors and returns tensors on the same device. The
+solver then evaluates it *inside* the chunk, at every step, with ``t`` a 0-d
+tensor on the solve's device (no host evaluation and no host read per
+step), which is the fast path for time-dependent applied fields and
+disorder.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from numbers import Number
 from typing import Callable, Optional, Union
 
 import numpy as np
+import torch
 
 _OPERATOR_SYMBOLS = {
     operator.add: "+",
@@ -149,10 +152,14 @@ class Parameter:
         self._cache.clear()
 
     def evaluate_traced(self, x, y, z=None, t=None):
-        """Evaluate without host-side array coercion, for use inside jit.
+        """Evaluate without host-side array coercion, on the traced path.
 
         Only valid when ``jittable=True``: calls ``func`` directly with the
-        given (possibly traced) arguments and returns its raw result.
+        given arguments and returns its raw result. In this package
+        "jittable" means that ``func`` takes torch tensors (the solver
+        passes the coordinates and ``t``, a 0-d tensor, on the solve's
+        device) and returns tensors on the same device, without reading
+        them back to the host.
         """
         kwargs = dict(self.kwargs)
         if self.time_dependent and t is not None:
@@ -319,14 +326,45 @@ class CompositeParameter(Parameter):
 
     def evaluate_traced(self, x, y, z=None, t=None):
         """Traced evaluation: combine operand results without host
-        coercion (see :meth:`Parameter.evaluate_traced`)."""
+        coercion (see :meth:`Parameter.evaluate_traced`).
+
+        ``x``, ``y``, ``z`` are tensors and ``t`` a 0-d tensor. Only the
+        time-dependent operands are called with them, at every call. A
+        time-independent operand (``ConstantField`` is numpy code) is
+        evaluated once, on the host, on numpy copies of the coordinates,
+        and kept as a tensor on their device (the JAX package gets the same
+        effect from XLA's constant folding).
+        """
         values = []
         for operand in (self.left, self.right):
-            if isinstance(operand, Parameter):
+            if not isinstance(operand, Parameter):
+                values.append(operand)
+            elif operand.time_dependent:
                 values.append(operand.evaluate_traced(x, y, z, t=t))
             else:
-                values.append(operand)
+                values.append(self._static_value(operand, x, y, z))
         return self.operator(*values)
+
+    def _static_value(self, operand, x, y, z):
+        """``operand``'s traced value on the coordinates ``(x, y, z)``
+        (tensors), computed on the host once per coordinate set."""
+        if not hasattr(self, "_traced_cache"):
+            self._traced_cache = {}
+        key = (id(operand), id(x), id(y), id(z))
+        hit = self._traced_cache.get(key)
+        if hit is not None and all(a is b for a, b in zip(hit[0], (x, y, z))):
+            return hit[1]
+
+        def host(v):
+            return (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                    else v)
+
+        value = operand.evaluate_traced(host(x), host(y), host(z))
+        device = x.device if isinstance(x, torch.Tensor) else None
+        value = torch.as_tensor(np.asarray(value), device=device)
+        # The coordinates are kept with the value, so their ids stay theirs.
+        self._traced_cache[key] = ((x, y, z), value)
+        return value
 
     def fingerprint(self) -> str:
         """Stable hashable token (see :meth:`Parameter.fingerprint`)."""
@@ -361,6 +399,7 @@ class CompositeParameter(Parameter):
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_cache"] = {}
+        state.pop("_traced_cache", None)
         state["left"] = _dump_callable(state["left"])
         state["right"] = _dump_callable(state["right"])
         return state

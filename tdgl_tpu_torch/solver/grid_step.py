@@ -1,18 +1,24 @@
 """The TDGL time step on the hex-grid stencil backend, in PyTorch.
 
-Port of the unscreened, static-input part of
-:mod:`tdgl_tpu.solver.grid_step`: the same semantics, ``StepConfig`` and
-per-step outputs, with the state held as dense ``(Rp, Cp)`` tensors. The
-psi update and the Poisson right-hand side go through the fused kernels of
+Port of :mod:`tdgl_tpu.solver.grid_step`: the same semantics, ``StepConfig``
+and per-step outputs, with the state held as dense ``(Rp, Cp)`` tensors,
+for static and traced time-dependent inputs (``cfg.A_fn``, ``cfg.eps_fn``,
+``cfg.mu_boundary_fn``) and for structured screening (the induced-potential
+fixed point, Anderson(1) or Polyak). The psi update and the Poisson
+right-hand side go through the fused kernels of
 :mod:`tdgl_tpu_torch.ops.step_kernels` (hand-written CUDA on the card,
-their plain versions on the CPU), with their chunk-constant operands bound
-and checked once per chunk (:class:`~tdgl_tpu_torch.ops.step_kernels.
-StepOperands`).
+their plain versions on the CPU): the stencil planes are checked once per
+chunk (:class:`~tdgl_tpu_torch.ops.step_kernels.StencilOperands`), and the
+operands that change within a chunk (the links rebuilt from a traced or
+screened vector potential, ``dA_dt``, the Neumann term) are rebound per
+step or per fixed-point iteration, which checks only them.
 
-Eager PyTorch cannot drop dead work the way XLA does, so the step computes
-only what the chunk carries: the per-step supercurrent and normal current
-of the JAX step are not formed (the chunk recomputes both once, after its
-last step, exactly as the JAX chunk does).
+Eager PyTorch cannot drop dead work the way XLA does, so a step forms only
+what it uses: the unscreened step forms neither the supercurrent nor the
+normal current (the chunk recomputes both once, after its last step, as
+the JAX chunk does); the screened step forms both in each fixed-point
+iteration (the RHS kernel's ``J_s``-writing form), since the induced
+potential needs them.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 
 from ..models import gtdgl_stencil as gs
 from ..ops.cg import solve_mu_poisson_grid
-from ..ops.step_kernels import StepOperands
+from ..ops.step_kernels import StencilOperands, StepOperands
 from .step import StepConfig, StepOutputs
 
 
@@ -81,25 +87,25 @@ def export_grid_state_arrays(state: GridState):
 
 
 def make_grid_step_fn(cfg: StepConfig):
-    """Build ``(sten, amg, state, ops, aux) -> (state, outputs)``.
+    """Build ``(sten, screening, amg, state, ops, aux) -> (state,
+    outputs)``.
 
-    ``ops`` is the chunk's :class:`StepOperands`: the stencil, the
-    chunk-constant link form (the applied potential is static), ``dA_dt``
-    and the Neumann term, checked once for the kernels; ``aux`` holds the
-    chunk's device constants (probe indices, the adaptive-window
-    positions). ``cfg.probe_ix`` holds flat
-    padded-grid indices.
+    ``screening`` is ``(weights, fft_data)`` (None without screening).
+    ``ops`` is the chunk's :class:`StepOperands`: the checked stencil
+    planes, with the link form bound when it is fixed for the chunk (a
+    static applied potential, no screening), and the chunk's ``dA_dt``
+    and Neumann term; a step rebinds what its traced inputs change.
+    ``aux`` holds the chunk's device constants (probe indices, the
+    adaptive-window positions, unit directions, screening weights).
+    ``cfg.probe_ix`` holds flat padded-grid indices. Traced inputs map a
+    0-d time tensor to grid shapes: ``A_fn(t) -> (3, Rp, Cp, 2)``,
+    ``eps_fn(t) -> (Rp, Cp)``, ``mu_boundary_fn(t) -> (B,)`` (scattered
+    here, deterministically).
     """
-    if cfg.include_screening or cfg.A_fn is not None \
-            or cfg.eps_fn is not None or cfg.mu_boundary_fn is not None:
-        raise NotImplementedError(
-            "the torch grid step covers static inputs without screening"
-            " (ROADMAP Queue 1: traced inputs, screening)"
-        )
 
-    def euler_with_retries(ops, pr, pi, mu, epsilon, dt0):
+    def euler_with_retries(ops, pr, pi, mu, epsilon, dt0, abs_sq=None):
         new_r, new_i, new_sq, ok = ops.psi_update(
-            cfg.gamma, cfg.u, pr, pi, mu, epsilon, dt0)
+            cfg.gamma, cfg.u, pr, pi, mu, epsilon, dt0, abs_sq)
         if not cfg.adaptive or cfg.fast_chunk:
             return new_r, new_i, new_sq, dt0, torch.logical_not(ok)
         # Discriminant retries with a shrinking dt: one host read of `ok`
@@ -108,44 +114,202 @@ def make_grid_step_fn(cfg: StepConfig):
         while tries <= cfg.max_solve_retries and not bool(ok):
             dt = dt * cfg.adaptive_time_step_multiplier
             new_r, new_i, new_sq, ok = ops.psi_update(
-                cfg.gamma, cfg.u, pr, pi, mu, epsilon, dt)
+                cfg.gamma, cfg.u, pr, pi, mu, epsilon, dt, abs_sq)
             tries += 1
         return new_r, new_i, new_sq, dt, torch.logical_not(ok)
 
-    def solve_mu(sten, amg, ops, pr, pi, mu_guess):
-        rhs = ops.poisson_rhs(pr, pi)
-        # The robust program's solve gets a tolerance-stopped top-up after
-        # its fixed iterations; the fast program gates the residual instead.
+    def solve_mu(sten, amg, rhs, mu_guess, fixed_iters=None):
+        # The outer (per-step) solve of the robust program gets a
+        # tolerance-stopped top-up after its fixed iterations; the fast
+        # program gates the residual instead. Inside the screening fixed
+        # point (explicit fixed_iters) the solve stays a smooth map.
+        topup = fixed_iters is None and not cfg.fast_chunk
+        if fixed_iters is None:
+            fixed_iters = cfg.poisson_fixed_iters
         return solve_mu_poisson_grid(
             sten, rhs, mu_guess,
             tol=cfg.poisson_tolerance,
             maxiter=cfg.poisson_max_iterations,
             amg=(amg if cfg.use_amg else None),
             amg_omega=cfg.amg_omega,
-            fixed_iters=cfg.poisson_fixed_iters,
-            topup=not cfg.fast_chunk,
+            fixed_iters=fixed_iters,
+            topup=topup,
         )
 
-    def step(sten, amg, state: GridState, ops: StepOperands, aux):
+    def induced_potential(sten, fft_data, aux, Jw):
+        if cfg.screening_use_fft:
+            from ..ops import fft_screening as fs
+
+            if cfg.screening_site_eval:
+                return fs.induced_vector_potential_fft_site(
+                    fft_data, sten, Jw, cfg.screening_site_taps)
+            return fs.induced_vector_potential_fft(fft_data, sten, Jw)
+        from ..ops.screening import induced_vector_potential
+
+        A_flat = induced_vector_potential(aux["ec_xy"], aux["sites_xy"],
+                                          Jw.reshape(-1, 2))
+        return (A_flat.reshape((3,) + Jw.shape)
+                * aux["edge_valid"][..., None])
+
+    def gate_residual(fail, cg_res, rdtype):
+        # Fast chunks replace the top-up loop with a looser residual gate;
+        # a trip triggers the solver's chunk-level failover. 2x the CG
+        # precision floor keeps the gate for gross failure.
+        gate = (cfg.poisson_fail_gate
+                if cfg.fast_chunk and cfg.poisson_fail_gate > 0
+                else cfg.poisson_tolerance)
+        res_allowed = max(gate, 100.0 * torch.finfo(rdtype).eps)
+        return torch.logical_or(fail, cg_res > res_allowed)
+
+    def step(sten, screening, amg, state: GridState, ops: StepOperands,
+             aux):
         rdtype = state.mu.dtype
         time = state.time
+        rebound = {}
+        if cfg.A_fn is not None:
+            A_applied = cfg.A_fn(time).to(rdtype)
+            dA = (A_applied - state.A_applied) / state.prev_dt
+            nd = aux["ndirs"]
+            dA_dt = (dA[..., 0] * nd[:, 0, None, None]
+                     + dA[..., 1] * nd[:, 1, None, None]) * aux["edge_valid"]
+            rebound["dA_dt"] = dA_dt
+        else:
+            A_applied = state.A_applied
+            dA_dt = state.dA_dt
+        epsilon = (cfg.eps_fn(time).to(rdtype)
+                   if cfg.eps_fn is not None else state.epsilon)
+        if cfg.mu_boundary_fn is not None:
+            neumann_term = gs.neumann_boundary_term(
+                sten, cfg.mu_boundary_fn(time).to(rdtype))
+            rebound["neumann_term"] = neumann_term
+        else:
+            neumann_term = state.neumann_term
+        step_ops = ops.rebind(**rebound) if rebound else ops
+        hoisted = ops.U is not None
+
         old_sq = state.psi_r**2 + state.psi_i**2
-        guess = (2.0 * state.mu - state.mu_prev if cfg.poisson_predictor
-                 else state.mu)
-        pr_n, pi_n, sq_n, dt_used, fail = euler_with_retries(
-            ops, state.psi_r, state.psi_i, state.mu, state.epsilon,
-            state.tentative_dt,
-        )
-        cg = solve_mu(sten, amg, ops, pr_n, pi_n, guess)
-        mu_n = cg.x
-        if cfg.poisson_fixed_iters is not None:
-            # Fast chunks replace the top-up loop with a looser residual
-            # gate; a trip triggers the solver's chunk-level failover.
-            gate = (cfg.poisson_fail_gate
-                    if cfg.fast_chunk and cfg.poisson_fail_gate > 0
-                    else cfg.poisson_tolerance)
-            res_allowed = max(gate, 100.0 * torch.finfo(rdtype).eps)
-            fail = torch.logical_or(fail, cg.residual_norm > res_allowed)
+        dt0 = state.tentative_dt
+
+        def tdgl_update(pr, pi, mu_in, A_induced, dt, fixed_iters=None,
+                        solve_guess=None, abs_sq=None, currents=False):
+            if hoisted:
+                o = step_ops
+            else:
+                A_total = (A_applied + A_induced if cfg.include_screening
+                           else A_applied)
+                o = step_ops.rebind(U=gs.edge_link_phases(sten, A_total,
+                                                          shifted=False))
+            pr_n, pi_n, sq_n, dt_used, fail = euler_with_retries(
+                o, pr, pi, mu_in, epsilon, dt, abs_sq)
+            if currents:
+                rhs, J_s = o.poisson_rhs(pr_n, pi_n, with_supercurrent=True)
+            else:
+                rhs, J_s = o.poisson_rhs(pr_n, pi_n), None
+            cg = solve_mu(sten, amg, rhs,
+                          mu_in if solve_guess is None else solve_guess,
+                          fixed_iters)
+            J_n = (-gs.gradient_on_edges(sten, cg.x) - dA_dt if currents
+                   else None)
+            return (pr_n, pi_n, sq_n, cg.x, J_s, J_n, dt_used, fail,
+                    cg.iterations, cg.residual_norm)
+
+        if cfg.include_screening:
+            weights, fft_data = screening
+            tol = cfg.screening_tolerance
+            tiny = torch.finfo(rdtype).tiny
+            # Denominator floor of the global criterion: anything below
+            # 1e-2 |A_applied| max contributes negligibly to the links.
+            app_scale = torch.max(torch.sqrt(
+                torch.sum(A_applied * A_applied, dim=-1)))
+
+            def s_body(s, carry):
+                """One fixed-point iteration (iteration ``s``) from
+                ``carry = (dt, A_ind, velocity, x_prev, pr, pi, mu)``; the
+                psi update starts from the iterate with the step's
+                ``|psi|^2``, as the reference does."""
+                dt, A_ind, velocity, x_prev, pr_n, pi_n, mu_n = carry
+                (pr_u, pi_u, sq_u, mu_u, J_s_u, J_n_u, dt_u, fail_i,
+                 cg_iters_u, cg_res_u) = tdgl_update(
+                    pr_n, pi_n, mu_n, A_ind, dt,
+                    fixed_iters=cfg.screening_cg_iters,
+                    abs_sq=None if s == 0 else old_sq, currents=True)
+                J_site = gs.edge_quantity_to_sites(sten, J_s_u + J_n_u)
+                Jw = J_site * aux["screen_w"]
+                A_new = induced_potential(sten, fft_data, aux, Jw)
+                dA = A_new - A_ind
+                if cfg.screening_anderson:
+                    # Depth-1 Anderson (secant) acceleration: `velocity`
+                    # carries the previous residual, `x_prev` the
+                    # previous iterate.
+                    if s == 0:
+                        A_ind_u = A_ind + cfg.screening_step_size * dA
+                    else:
+                        dr = dA - velocity
+                        denom = torch.clamp(torch.sum(dr * dr), min=tiny)
+                        theta = torch.clamp(torch.sum(dA * dr) / denom,
+                                            -10.0, 10.0)
+                        A_ind_u = ((1.0 - theta) * A_new
+                                   + theta * (x_prev + velocity))
+                    velocity_u, x_prev_u = dA, A_ind
+                else:
+                    velocity_u = ((1.0 - cfg.screening_step_drag) * velocity
+                                  + cfg.screening_step_size * dA)
+                    A_ind_u = A_ind + velocity_u
+                    x_prev_u = x_prev
+                dA_norm = torch.sqrt(torch.sum(dA * dA, dim=-1))
+                A_norm = torch.sqrt(torch.sum(A_ind_u * A_ind_u, dim=-1))
+                if cfg.screening_global_error_norm:
+                    denom = torch.maximum(
+                        torch.max(A_norm),
+                        torch.clamp(0.01 * app_scale, min=1e-20))
+                    err_u = torch.max(dA_norm) / denom
+                else:
+                    err_u = torch.max(dA_norm / torch.clamp(A_norm,
+                                                            min=1e-20))
+                carry_u = (dt_u, A_ind_u, velocity_u, x_prev_u, pr_u, pi_u,
+                           mu_u)
+                return carry_u, (sq_u, fail_i, cg_iters_u, cg_res_u, err_u)
+
+            carry = (dt0, state.A_induced, torch.zeros_like(state.A_induced),
+                     state.A_induced, state.psi_r, state.psi_i, state.mu)
+            big = torch.full((), 1e30, dtype=rdtype, device=state.mu.device)
+            out = (old_sq, torch.zeros_like(state.done), aux["zero_i32"],
+                   big, big)
+            fail = torch.zeros_like(state.done)
+            s = 0
+            if cfg.fast_chunk:
+                # One inline iteration; the tolerance gate below trips
+                # chunk failover when a step needs more.
+                carry, out = s_body(0, carry)
+                fail = torch.logical_or(fail, out[1])
+                s = 1
+            elif not bool(state.done):
+                # The robust program's loop, with a host read of the error
+                # per iteration; a frozen (done) ghost step runs none, as
+                # the JAX loop's condition tests state.done.
+                while s <= cfg.max_iterations_per_step:
+                    carry, out = s_body(s, carry)
+                    fail = torch.logical_or(fail, out[1])
+                    s += 1
+                    if not bool(out[4] >= tol):
+                        break
+            dt_used, A_induced, _, _, pr_n, pi_n, mu_n = carry
+            sq_n, _, cg_iters, cg_res, err = out
+            fail = torch.logical_or(fail, err >= tol)
+            fail = gate_residual(fail, cg_res, rdtype)
+            screening_iters = (aux["one_i32"] if cfg.fast_chunk
+                               else torch.full((), s, dtype=torch.int32,
+                                               device=state.mu.device))
+        else:
+            guess = (2.0 * state.mu - state.mu_prev if cfg.poisson_predictor
+                     else None)
+            (pr_n, pi_n, sq_n, mu_n, _, _, dt_used, fail, cg_iters,
+             cg_res) = tdgl_update(state.psi_r, state.psi_i, state.mu,
+                                   state.A_induced, dt0, solve_guess=guess)
+            if cfg.poisson_fixed_iters is not None:
+                fail = gate_residual(fail, cg_res, rdtype)
+            A_induced = state.A_induced
+            screening_iters = aux["zero_i32"]
 
         d_psi_sq = torch.max(torch.abs(sq_n - old_sq))
         W = cfg.adaptive_window
@@ -166,6 +330,11 @@ def make_grid_step_fn(cfg: StepConfig):
             psi_i=pi_n,
             mu=mu_n,
             mu_prev=state.mu,
+            A_induced=A_induced,
+            A_applied=A_applied,
+            epsilon=epsilon,
+            neumann_term=neumann_term,
+            dA_dt=dA_dt,
             tentative_dt=tentative.to(rdtype),
             prev_dt=dt_used.to(rdtype),
             time=time + dt_used,
@@ -181,8 +350,8 @@ def make_grid_step_fn(cfg: StepConfig):
             mu_probe=mu_n.reshape(-1)[probe_ix],
             theta_probe=torch.atan2(pi_n.reshape(-1)[probe_ix],
                                     pr_n.reshape(-1)[probe_ix]),
-            screening_iterations=aux["zero_i32"],
-            cg_iterations=cg.iterations,
+            screening_iterations=screening_iters,
+            cg_iterations=cg_iters,
             valid=aux["one_i32"],
         )
         return new_state, outputs
@@ -191,35 +360,50 @@ def make_grid_step_fn(cfg: StepConfig):
 
 
 def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
-    """``(sten, amg, state) -> (state, outputs, exported)`` advancing up to
-    ``chunk_size`` steps, as a Python loop over steps.
+    """``(sten, amg, state, screening=None) -> (state, outputs,
+    exported)`` advancing up to ``chunk_size`` steps, as a Python loop over
+    steps (``screening``: ``(weights, fft_data)`` when
+    ``cfg.include_screening``).
 
     Mirrors the JAX chunk program:
 
-    * the link variables are computed once per chunk (static applied
-      potential), in factored form when ``cfg.factor_link_phases``, and
-      bound with the other chunk-constant kernel operands (``dA_dt``, the
-      Neumann term: neither is carried) into one :class:`StepOperands`;
-    * only the fields a step changes are carried; finished or failed runs
-      are frozen with an elementwise select on the device flag ``done``
-      (no host read inside the chunk, apart from the robust program's
-      retry and top-up tests);
-    * the last step's supercurrent and normal current are recomputed once
-      after the loop.
+    * the stencil planes are checked once per chunk; with a static applied
+      potential and no screening the link variables are computed once per
+      chunk too (in factored form when ``cfg.factor_link_phases``) and
+      bound with ``dA_dt`` and the Neumann term; a traced ``A_fn`` or
+      screening rebuilds them per step or per fixed-point iteration;
+    * only the fields a step changes are carried (the induced potential
+      with screening, the applied potential and ``dA_dt`` with ``A_fn``);
+      finished or failed runs are frozen with an elementwise select on
+      the device flag ``done`` (no host read inside the fast program's
+      chunk; the robust program reads ``ok``, the top-up residual and the
+      screening error);
+    * traced ``epsilon`` and Neumann terms are refreshed at the chunk's
+      final time, and the last step's supercurrent and normal current are
+      recomputed once after the loop.
     """
     step_fn = make_grid_step_fn(cfg)
+    hoist_link = cfg.A_fn is None and not cfg.include_screening
     carried = ["psi_r", "psi_i", "mu", "tentative_dt", "prev_dt", "time",
                "step", "dpsi_window", "done", "failed"]
-    if cfg.poisson_predictor:
+    if cfg.poisson_predictor and not cfg.include_screening:
         carried.append("mu_prev")
+    if cfg.include_screening:
+        carried.append("A_induced")
+    if cfg.A_fn is not None:
+        # dA/dt needs the previous step's applied potential.
+        carried += ["A_applied", "dA_dt"]
 
-    def chunk_fn(sten, amg, state: GridState):
+    def chunk_fn(sten, amg, state: GridState, screening=None):
         dev = state.mu.device
-        if cfg.factor_link_phases:
-            static_link = gs.factor_link_phases(sten, state.A_applied)
-        else:
-            static_link = gs.edge_link_phases(sten, state.A_applied)
-        ops = StepOperands(sten, static_link, state.dA_dt,
+        rdtype = state.mu.dtype
+        static_link = None
+        if hoist_link:
+            if cfg.factor_link_phases:
+                static_link = gs.factor_link_phases(sten, state.A_applied)
+            else:
+                static_link = gs.edge_link_phases(sten, state.A_applied)
+        ops = StepOperands(StencilOperands(sten), static_link, state.dA_dt,
                            state.neumann_term)
         aux = dict(
             probe_ix=torch.tensor(list(cfg.probe_ix or ()), dtype=torch.long,
@@ -228,13 +412,28 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
                                    device=dev),
             zero_i32=torch.zeros((), dtype=torch.int32, device=dev),
             one_i32=torch.ones((), dtype=torch.int32, device=dev),
+            edge_valid=sten.edge_valid.to(rdtype),
         )
-        zero_dt = torch.zeros((), dtype=state.mu.dtype, device=dev)
+        if cfg.A_fn is not None:
+            dirs = sten.edge_dirs.to(rdtype)
+            aux["ndirs"] = dirs / torch.sqrt(
+                torch.sum(dirs * dirs, dim=1, keepdim=True))
+        if cfg.include_screening:
+            aux["screen_w"] = screening[0][..., None].to(rdtype)
+            if not cfg.screening_use_fft:
+                far = 1e6 * (1.0 - sten.valid.to(rdtype))
+                aux["sites_xy"] = torch.stack(
+                    [sten.site_x.to(rdtype) + far,
+                     sten.site_y.to(rdtype) + far], dim=-1).reshape(-1, 2)
+                aux["ec_xy"] = torch.stack(
+                    [sten.ec_x.to(rdtype), sten.ec_y.to(rdtype)],
+                    dim=-1).reshape(-1, 2)
+        zero_dt = torch.zeros((), dtype=rdtype, device=dev)
         st = state
         steps = []
         for _ in range(chunk_size):
             frozen = st.done
-            new_st, out = step_fn(sten, amg, st, ops, aux)
+            new_st, out = step_fn(sten, screening, amg, st, ops, aux)
             st = st._replace(**{
                 k: torch.where(frozen, getattr(st, k), getattr(new_st, k))
                 for k in carried
@@ -244,10 +443,23 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
                 dt=torch.where(frozen, zero_dt, out.dt),
             ))
         outputs = StepOutputs(*(torch.stack(field) for field in zip(*steps)))
+        # Chunk-constant fields dropped from the carry are refreshed at the
+        # final time when they are traced functions of t.
+        if cfg.eps_fn is not None:
+            st = st._replace(epsilon=cfg.eps_fn(st.time).to(rdtype))
+        if cfg.mu_boundary_fn is not None:
+            st = st._replace(neumann_term=gs.neumann_boundary_term(
+                sten, cfg.mu_boundary_fn(st.time).to(rdtype)))
         # Recompute the last step's currents once (pure functions of the
         # final psi/mu); keep the seed values when the chunk did not
         # advance.
-        J_s = gs.supercurrent_on_edges(sten, static_link, st.psi_r, st.psi_i)
+        if static_link is None:
+            A_total = (st.A_applied + st.A_induced if cfg.include_screening
+                       else st.A_applied)
+            U = gs.edge_link_phases(sten, A_total, shifted=False)
+        else:
+            U = static_link
+        J_s = gs.supercurrent_on_edges(sten, U, st.psi_r, st.psi_i)
         J_n = -gs.gradient_on_edges(sten, st.mu) - st.dA_dt
         advanced = st.step > state.step
         final = st._replace(

@@ -184,6 +184,10 @@ class RunningState:
             self.values["theta"][:, start:stop] = (
                 np.asarray(outputs.theta_probe)[:m].T
             )
+        if "screening_iterations" in self.values:
+            self.values["screening_iterations"][0, start:stop] = (
+                np.asarray(outputs.screening_iterations)[:m]
+            )
         self._cursor = stop
 
 
@@ -203,6 +207,9 @@ class Runner:
         initial_export: Host view of the initial state (the step-0
             snapshot).
         checkpoint_meta: Attributes of every checkpoint.
+        host_update_fn: Optional ``state -> state`` called before every
+            chunk (the host-evaluated time-dependent inputs; the solver
+            sets the chunk size to 1 then).
     """
 
     def __init__(
@@ -218,6 +225,7 @@ class Runner:
         initial_export: Dict[str, np.ndarray],
         checkpoint_meta: Dict[str, object],
         logger: Optional[logging.Logger] = None,
+        host_update_fn: Optional[Callable] = None,
     ):
         self.chunk_fn = chunk_fn
         self.state = initial_state
@@ -230,6 +238,7 @@ class Runner:
         # before the first chunk.
         self._last_export = initial_export
         self.checkpoint_meta = checkpoint_meta
+        self.host_update_fn = host_update_fn
         self.logger = logger or logging.getLogger(__name__)
         self.running_state = RunningState(
             running_names_and_sizes, options.save_every
@@ -336,6 +345,8 @@ class Runner:
             prev_time = 0.0
             while True:
                 try:
+                    if self.host_update_fn is not None:
+                        self.state = self.host_update_fn(self.state)
                     self.state, outputs, exported = self.chunk_fn(self.state)
                     # The chunk's one read from the device.
                     outputs = StepOutputs(*(to_host(t) for t in outputs))
@@ -348,7 +359,9 @@ class Runner:
                             f"Solver failed to converge at step"
                             f" {int(diag[3])} of stage"
                             f" {name!r}: the time step underflowed"
-                            f" ({options.max_solve_retries} retries)."
+                            f" ({options.max_solve_retries} retries) or the"
+                            " screening iteration hit"
+                            f" {options.max_iterations_per_step} iterations."
                             " Try a smaller dt_init."
                         )
                     now = float(diag[0])

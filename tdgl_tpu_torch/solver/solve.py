@@ -16,7 +16,7 @@ def solve(
     device: Device,
     options: SolverOptions,
     applied_vector_potential: Union[Callable, float] = 0.0,
-    terminal_currents: Optional[Dict[str, float]] = None,
+    terminal_currents: Union[Callable, Dict[str, float], None] = None,
     disorder_epsilon: Union[Callable, float] = 1.0,
     seed_solution=None,
     resume_from: Optional[str] = None,
@@ -31,12 +31,13 @@ def solve(
             (``make_mesh(structured=True)``).
         options: Solver options.
         applied_vector_potential: Uniform field strength (float, in
-            ``options.field_units``) or a time-independent
-            Parameter/callable of position.
+            ``options.field_units``) or a Parameter/callable of position
+            (and time).
         terminal_currents: ``{terminal_name: current}`` (in
-            ``options.current_units``).
+            ``options.current_units``) or a callable of time
+            (:func:`~tdgl_tpu_torch.jittable` for the traced path).
         disorder_epsilon: The local critical-temperature parameter
-            epsilon(r) <= 1 (float or time-independent callable).
+            epsilon(r[, t]) <= 1.
         seed_solution: Not ported yet (must be None).
         resume_from: Not ported yet (must be None).
         torch_device: ``"cuda"`` (default; raises where CUDA is not

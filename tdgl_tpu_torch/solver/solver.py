@@ -1,17 +1,25 @@
 """TDGLSolver: problem assembly and execution, in PyTorch.
 
-Port of the structured, unscreened, static-input branch of
-:mod:`tdgl_tpu.solver.solver`: the same constructor, nondimensionalisation
-(A in units of A0, currents via ``J_scale = 4 (I/L)/K0``), terminal
-boundary conditions, option resolution, fast/robust chunk programs with
-chunk failover, initial state, and ``solve()`` with the Runner, the HDF5
-output file and the :class:`~tdgl_tpu_torch.Solution`. Tensors live on
-``torch_device``: the card (``"cuda"``) unless the caller asks for the
+Port of the structured branch of :mod:`tdgl_tpu.solver.solver`: the same
+constructor, nondimensionalisation (A in units of A0, currents via
+``J_scale = 4 (I/L)/K0``), terminal boundary conditions, option
+resolution, time-dependent inputs, screening, fast/robust chunk programs
+with chunk failover, initial state, and ``solve()`` with the Runner, the
+HDF5 output file and the :class:`~tdgl_tpu_torch.Solution`. Tensors live
+on ``torch_device``: the card (``"cuda"``) unless the caller asks for the
 CPU.
 
+Time-dependent inputs run on one of two paths, as in the JAX package:
+
+* **traced**: ``Parameter(..., jittable=True)`` and :func:`jittable`
+  callables take torch tensors (``t`` is a 0-d tensor on the solve's
+  device) and are evaluated inside the chunk, every step;
+* **host**: plain callables are evaluated on the host before every step
+  (chunk size 1, :meth:`TDGLSolver._host_update`).
+
 What this package does not run yet raises ``NotImplementedError`` naming
-its ROADMAP item (Queue 1): time-dependent inputs, screening, seed
-solutions and resume, unstructured meshes, and the live monitor.
+its ROADMAP item (Queue 1): seed solutions and resume, unstructured
+meshes, and the live monitor.
 """
 
 from __future__ import annotations
@@ -67,6 +75,25 @@ class UniformEpsilon:
         return f"UniformEpsilon({self.value!r})"
 
 
+def jittable(fn: Callable) -> Callable:
+    """Mark a ``terminal_currents`` callable as traceable
+    (``fn.jittable = True``): it takes ``t`` as a 0-d torch tensor and
+    returns ``{terminal: current}`` with tensor (or number) values, reading
+    nothing back to the host. The solver evaluates it inside the chunk, so
+    current ramps and IV sweeps keep the full chunk size instead of one
+    step per host update."""
+    fn.jittable = True
+    return fn
+
+
+def _host_currents(fn: Callable, t) -> Dict[str, float]:
+    """``fn(t)`` evaluated on the host as ``{name: float}``; a traceable
+    ``fn`` gets ``t`` as a float64 CPU tensor."""
+    if getattr(fn, "jittable", False):
+        t = torch.tensor(float(t), dtype=torch.float64)
+    return {k: float(v) for k, v in fn(t).items()}
+
+
 def validate_terminal_currents(
     terminal_currents: Union[Callable, Dict[str, float]],
     terminal_info: Sequence[TerminalInfo],
@@ -91,7 +118,7 @@ def validate_terminal_currents(
     if callable(terminal_currents):
         for t in np.random.default_rng(0).random(num_evals) * \
                 solver_options.solve_time:
-            check(terminal_currents(t))
+            check(_host_currents(terminal_currents, t))
     else:
         check(terminal_currents)
 
@@ -104,13 +131,14 @@ class TDGLSolver:
             (``make_mesh(structured=True)``).
         options: :class:`tdgl_tpu_torch.SolverOptions`.
         applied_vector_potential: A float (uniform field strength in
-            ``field_units``), or a time-independent Parameter/callable of
-            ``(x, y, z)`` returning the vector potential in
-            ``field_units * length_units``.
-        terminal_currents: Dict ``{terminal_name: current}`` (in
-            ``current_units``).
-        disorder_epsilon: Float (<= 1) or time-independent callable giving
-            the local critical temperature parameter epsilon(r).
+            ``field_units``), or a Parameter/callable of ``(x, y, z)`` (and
+            keyword ``t`` if time-dependent) returning the vector potential
+            in ``field_units * length_units``.
+        terminal_currents: Dict ``{terminal_name: current}`` or callable
+            ``t -> dict`` (in ``current_units``; :func:`jittable` for the
+            traced path).
+        disorder_epsilon: Float (<= 1) or callable giving the local
+            critical temperature parameter epsilon(r[, t]).
         seed_solution: Not supported yet (must be None).
         torch_device: Where every tensor of the solve lives (keyword-only):
             ``"cuda"`` (the default) runs the hand-written kernels and
@@ -123,7 +151,7 @@ class TDGLSolver:
         device: Device,
         options: SolverOptions,
         applied_vector_potential: Union[Callable, float] = 0.0,
-        terminal_currents: Optional[Dict[str, float]] = None,
+        terminal_currents: Union[Callable, Dict[str, float], None] = None,
         disorder_epsilon: Union[Callable, float] = 1.0,
         seed_solution=None,
         *,
@@ -150,30 +178,7 @@ class TDGLSolver:
         if mesh.grid is None or options.solver_backend == "ell":
             raise _not_ported("The unstructured (ELL) backend",
                               "unstructured backend")
-        if options.include_screening:
-            raise _not_ported("Screening", "structured screening")
-        if options.poisson_solver == "mg":
-            raise SolverOptionsError(
-                "poisson_solver='mg' (MG-Richardson) is not part of"
-                " tdgl_tpu_torch (ROADMAP: do not port); use 'cg'."
-            )
-        if options.poisson_sstep:
-            raise SolverOptionsError(
-                "poisson_sstep (s-step CG) is not part of tdgl_tpu_torch"
-                " (ROADMAP: do not port)."
-            )
-        if options.fold_link_weights or options.link_phase_bf16:
-            raise SolverOptionsError(
-                "fold_link_weights / link_phase_bf16 are not part of"
-                " tdgl_tpu_torch (ROADMAP: do not port); a non-separable"
-                " applied potential runs with raw link phases."
-            )
-        if options.pallas_step is not None:
-            raise SolverOptionsError(
-                "pallas_step selects the JAX package's Pallas kernels;"
-                " tdgl_tpu_torch runs its CUDA kernels on every CUDA"
-                " tensor and their plain versions on the CPU."
-            )
+        self._reject_unported_options(options)
         self.rdtype = np.float32 if options.dtype == "float32" else np.float64
         self.cdtype = (np.complex64 if options.dtype == "float32"
                        else np.complex128)
@@ -195,10 +200,10 @@ class TDGLSolver:
         self.z0 = device.layer.z0 * np.ones(len(self.edge_centers))
 
         # --- applied vector potential --------------------------------------
-        if (isinstance(applied_vector_potential, Parameter)
-                and applied_vector_potential.time_dependent):
-            raise _not_ported("A time-dependent applied vector potential",
-                              "traced time-dependent inputs")
+        self.dynamic_vector_potential = (
+            isinstance(applied_vector_potential, Parameter)
+            and applied_vector_potential.time_dependent
+        )
         if not callable(applied_vector_potential):
             applied_vector_potential = ConstantField(
                 applied_vector_potential,
@@ -211,24 +216,21 @@ class TDGLSolver:
             (ureg(options.field_units) * length_units / A0)
             .to_base_units().magnitude
         )
-        current_A_applied = self._eval_A()
+        current_A_applied = self._eval_A(0.0)
 
         # --- disorder epsilon ------------------------------------------------
         if callable(disorder_epsilon):
             spec = inspect.getfullargspec(disorder_epsilon)
-            dynamic_epsilon = "t" in (spec.kwonlyargs or [])
+            self.dynamic_epsilon = "t" in (spec.kwonlyargs or [])
             self.vectorized_epsilon = bool(
                 (spec.kwonlydefaults or {}).get("vectorized", False)
             )
         else:
             disorder_epsilon = UniformEpsilon(disorder_epsilon)
-            dynamic_epsilon = False
+            self.dynamic_epsilon = False
             self.vectorized_epsilon = True
-        if dynamic_epsilon:
-            raise _not_ported("A time-dependent disorder_epsilon",
-                              "traced time-dependent inputs")
         self.disorder_epsilon = disorder_epsilon
-        epsilon = self._eval_epsilon()
+        epsilon = self._eval_epsilon(0.0)
         if np.any(epsilon > 1):
             raise ValueError("The disorder parameter epsilon must be <= 1.")
 
@@ -249,23 +251,31 @@ class TDGLSolver:
         if terminal_currents is None:
             terminal_currents = {name: 0.0 for name in self.terminal_names}
         if callable(terminal_currents):
-            raise _not_ported("Time-dependent terminal currents",
-                              "traced time-dependent inputs")
-        terminal_currents = {
-            name: terminal_currents.get(name, 0.0)
-            for name in self.terminal_names
-        }
+            current_func = terminal_currents
+            self.dynamic_currents = True
+            self._jittable_currents = bool(
+                getattr(terminal_currents, "jittable", False)
+            )
+        else:
+            self._jittable_currents = False
+            terminal_currents = {
+                name: terminal_currents.get(name, 0.0)
+                for name in self.terminal_names
+            }
+            self.dynamic_currents = False
 
-        def current_func(t, _currents=terminal_currents):
-            return _currents
+            def current_func(t, _currents=terminal_currents):
+                return _currents
 
         # Dimensionless current scale: edge supercurrent values are in units
         # of J0/4 = K0/(4 d), hence the factor 4.
         J_scale = (ureg(options.current_units) / length_units / K0)
         J_scale = 4.0 * float(J_scale.to_base_units().magnitude)
         self.J_scale = J_scale
+        # Host evaluation (a traceable function gets a CPU tensor t).
         self.current_func = (
-            lambda t: {k: J_scale * v for k, v in current_func(t).items()}
+            lambda t: {k: J_scale * v
+                       for k, v in _host_currents(current_func, t).items()}
         )
         validate_terminal_currents(self.current_func, self.terminal_info,
                                    options)
@@ -308,7 +318,10 @@ class TDGLSolver:
         else:
             self.host_amg = self.amg = None
 
-        # --- initial state -----------------------------------------------------
+        # --- screening -------------------------------------------------------
+        self._setup_screening(options, xi, K0, A0, length_units)
+
+        # --- initial state ---------------------------------------------------
         n_sites = len(mesh.sites)
         psi_init = np.ones(n_sites, dtype=self.cdtype)
         if terminal_psi is not None:
@@ -319,12 +332,57 @@ class TDGLSolver:
         self.epsilon = np.asarray(epsilon, dtype=self.rdtype)
         self.current_A_applied = current_A_applied
 
+        # --- time-dependence strategy ----------------------------------------
+        self._jittable_A = (
+            self.dynamic_vector_potential
+            and getattr(self.applied_vector_potential, "jittable", False)
+        )
+        self._jittable_eps = (
+            self.dynamic_epsilon
+            and getattr(self.disorder_epsilon, "jittable", False)
+        )
+        self.host_dynamic = (
+            (self.dynamic_vector_potential and not self._jittable_A)
+            or (self.dynamic_epsilon and not self._jittable_eps)
+            or (self.dynamic_currents and not self._jittable_currents)
+        )
+        A_fn, eps_fn, mu_boundary_fn = self._traced_inputs(current_func, xi)
+
         dt_max = options.dt_max if options.adaptive else options.dt_init
         poisson_tol = (
             float(options.poisson_tolerance)
             if options.poisson_tolerance is not None
             else (1e-4 if options.dtype == "float32" else 1e-6)
         )
+        screening_global_norm = (
+            options.screening_error_norm == "global"
+            or (options.screening_error_norm == "auto"
+                and options.dtype == "float32")
+        )
+        screening_tol = float(options.screening_tolerance)
+        if options.include_screening:
+            # Precision floor on the effective screening tolerance (see
+            # SolverOptions.screening_tolerance_floor).
+            floor = options.screening_tolerance_floor
+            if floor is None:
+                if options.dtype == "float32":
+                    floor = 5e-4 if screening_global_norm else 3e-3
+                else:
+                    floor = 0.0
+            if screening_tol < floor:
+                logger.warning(
+                    "screening_tolerance=%.1e is below the %s precision "
+                    "floor %.1e for dtype=%s; using the floor (set "
+                    "screening_tolerance_floor=0 to disable).",
+                    screening_tol,
+                    "global-norm" if screening_global_norm else "per-edge",
+                    floor, options.dtype,
+                )
+                screening_tol = float(floor)
+            # mu-solve noise enters the fixed point through the normal
+            # current, so CG must converge well below the screening
+            # tolerance.
+            poisson_tol = min(poisson_tol, 1e-2 * screening_tol)
         self.cfg = StepConfig(
             gamma=float(self.gamma),
             u=float(self.u),
@@ -336,8 +394,23 @@ class TDGLSolver:
             adaptive_time_step_multiplier=float(
                 options.adaptive_time_step_multiplier
             ),
-            include_screening=False,
-            screening_tolerance=float(options.screening_tolerance),
+            include_screening=bool(options.include_screening),
+            screening_global_error_norm=screening_global_norm,
+            screening_use_fft=(self._screening_kernel == "fft"),
+            # Auto resolves to False here (the robust program evaluates
+            # the exact per-edge-class convolution); the fast chunk
+            # program flips to the site-evaluated kernel below.
+            screening_site_eval=(options.screening_site_eval is True),
+            screening_site_taps=self._site_taps,
+            screening_anderson=(options.screening_solver == "anderson"),
+            screening_cg_iters=(
+                int(options.screening_cg_iterations)
+                if options.screening_cg_iterations is not None
+                # f32: 5 suffices for the f32-floored inner tolerance; f64
+                # runs chase ~1e-8 inner residuals and keep a deeper count.
+                else (5 if options.dtype == "float32" else 8)
+            ),
+            screening_tolerance=screening_tol,
             screening_step_size=float(options.screening_step_size),
             screening_step_drag=float(options.screening_step_drag),
             max_iterations_per_step=int(options.max_iterations_per_step),
@@ -353,54 +426,212 @@ class TDGLSolver:
                 tuple(int(self.maps.site_flat[p]) for p in self.probe_points)
                 if self.probe_points is not None else None
             ),
+            A_fn=A_fn,
+            eps_fn=eps_fn,
+            mu_boundary_fn=mu_boundary_fn,
             use_amg=self._use_amg,
         )
         self._resolve_factor_link_phases(options)
-        cap = int(options.steps_per_chunk or 4096)
-        if options.save_every <= cap:
-            self.chunk_size = options.save_every
+        if self.host_dynamic:
+            self.chunk_size = 1
         else:
-            # Largest divisor of save_every that fits the cap, so snapshots
-            # land exactly on chunk boundaries.
-            divisor = 1
-            for d in range(1, cap + 1):
-                if options.save_every % d == 0:
-                    divisor = d
-            self.chunk_size = divisor
+            cap = int(options.steps_per_chunk or 4096)
+            if options.save_every <= cap:
+                self.chunk_size = options.save_every
+            else:
+                # Largest divisor of save_every that fits the cap, so
+                # snapshots land exactly on chunk boundaries.
+                divisor = 1
+                for d in range(1, cap + 1):
+                    if options.save_every % d == 0:
+                        divisor = d
+                self.chunk_size = divisor
         self._raw_chunk_fn = make_grid_chunk_fn(self.cfg, self.chunk_size)
         self._failover_count = 0
         if options.chunk_failover != "off":
             # The fast program: no retry/top-up loops, health gates instead
             # (StepConfig.fast_chunk). A chunk with a tripped gate is
             # re-run from its start state with the robust program.
-            fast_over = {}
-            fail_gate = 10.0 * float(self.cfg.poisson_tolerance)
-            if (options.poisson_fixed_iterations is None
-                    and options.poisson_tolerance is None
-                    and self.cfg.poisson_fixed_iters == 2):
-                # Gated fixed-1 mu solve (unscreened auto f32 structured
-                # path): ONE MG-CG iteration per step, committed iff the
-                # residual holds a 1e-2 gate; trips rewind the chunk to the
-                # robust program (fixed-2 + tolerance-stopped top-up).
-                fast_over["poisson_fixed_iters"] = 1
-                fail_gate = 1e-2
             self._fast_cfg = dataclasses.replace(
-                self.cfg, fast_chunk=True, poisson_fail_gate=fail_gate,
-                **fast_over,
-            )
+                self.cfg, fast_chunk=True, **self._fast_overrides(options))
             self._fast_chunk_fn = make_grid_chunk_fn(self._fast_cfg,
                                                      self.chunk_size)
             self.chunk_fn = self._failover_chunk_fn
         else:
             self.chunk_fn = lambda state: self._raw_chunk_fn(
-                self.sten, self.amg, state
+                self.sten, self.amg, state, self._screening
             )
+
+    @staticmethod
+    def _reject_unported_options(options: SolverOptions) -> None:
+        """Raise ``SolverOptionsError`` for the options this package does
+        not have (TPU-only, or measured and not ported)."""
+        rejected = {
+            "poisson_solver='mg' (MG-Richardson)":
+                options.poisson_solver == "mg",
+            "poisson_sstep (s-step CG)": bool(options.poisson_sstep),
+            "fold_link_weights / link_phase_bf16 (a non-separable applied"
+            " potential runs with raw link phases)":
+                bool(options.fold_link_weights or options.link_phase_bf16),
+            "screening_kernel='mxu' (the TPU's DFT-matmul form; 'fft' runs"
+            " the same convolution on cuFFT)":
+                options.screening_kernel == "mxu",
+            "screening_dft_precision='bf16' (an operand precision of the"
+            " TPU's DFT matmuls)":
+                options.screening_dft_precision == "bf16",
+        }
+        for what, hit in rejected.items():
+            if hit:
+                raise SolverOptionsError(
+                    f"{what} is not part of tdgl_tpu_torch (ROADMAP: do not"
+                    " port)."
+                )
+        if options.pallas_step is not None:
+            raise SolverOptionsError(
+                "pallas_step selects the JAX package's Pallas kernels;"
+                " tdgl_tpu_torch runs its CUDA kernels on every CUDA"
+                " tensor and their plain versions on the CPU."
+            )
+
+    def _setup_screening(self, options, xi, K0, A0, length_units) -> None:
+        """The screening weights and kernel: ``"auto"`` resolves to
+        ``"fft"`` (the exact lattice convolution; this package has no
+        TPU DFT-matmul form), ``"xla"`` is the pairwise sum. Sets
+        ``self._screening`` (``(weights, fft_data)`` tensors, or None),
+        ``self._screening_kernel`` and ``self._site_taps``."""
+        kernel = options.screening_kernel
+        if kernel == "auto":
+            kernel = "fft"
+        self._screening_kernel = kernel
+        self._site_taps = None
+        self._screening = None
+        if not options.include_screening:
+            return
+        if options.screening_site_eval is True and kernel != "fft":
+            raise SolverOptionsError(
+                "screening_site_eval=True needs the 'fft' screening kernel"
+                f" (got screening_kernel={options.screening_kernel!r})."
+            )
+        # weight_s = [mu_0/(4 pi) K0/A0] * xi * a_s (dimensionless a, r).
+        A_scale_scr = (
+            (ureg("mu_0") / (4 * np.pi) * K0 / A0).to(1 / length_units)
+        ).magnitude
+        weights = (A_scale_scr * xi) * np.asarray(self.mesh.areas)
+        weights = self.maps.site_to_grid(weights.astype(self.rdtype))
+        fft_data = None
+        if kernel == "fft":
+            from ..ops.fft_screening import (build_fft_screening,
+                                             build_site_interp_taps)
+
+            fft_data = convert.fft_screening_to_torch(
+                build_fft_screening(self.host_sten, self.maps,
+                                    self.mesh.grid, dtype=self.rdtype),
+                self.torch_device)
+            self._site_taps = build_site_interp_taps(
+                self.host_sten, self.maps, self.mesh.grid)
+            if (options.screening_site_eval is True
+                    and self._site_taps is None):
+                raise SolverOptionsError(
+                    "screening_site_eval=True but the mesh's valid region"
+                    " sits too close to the padded-grid boundary for the"
+                    " interpolation/correction rolls to be wrap-safe on"
+                    " this mesh."
+                )
+        self._screening = (convert.to_tensor(weights, self.torch_device),
+                           fft_data)
+
+    def _fast_overrides(self, options: SolverOptions) -> Dict[str, object]:
+        """The fast program's ``StepConfig`` changes: its residual gate,
+        and (screened) the shallower inner solve and the site-evaluated
+        convolution at float32, or (unscreened auto float32) the gated
+        fixed-1 mu solve."""
+        over = {"poisson_fail_gate": 10.0 * float(self.cfg.poisson_tolerance)}
+        if self.cfg.include_screening:
+            sfi = options.screening_fast_iterations
+            if sfi is None and options.dtype == "float32":
+                sfi = min(3, self.cfg.screening_cg_iters)
+            if sfi is not None:
+                over["screening_cg_iters"] = int(sfi)
+            if (options.screening_site_eval is None
+                    and self.cfg.screening_use_fft
+                    and self.cfg.screening_site_taps is not None
+                    and options.dtype == "float32"):
+                over["screening_site_eval"] = True
+        elif (options.poisson_fixed_iterations is None
+                and options.poisson_tolerance is None
+                and self.cfg.poisson_fixed_iters == 2):
+            # Gated fixed-1 mu solve (unscreened auto f32 structured
+            # path): ONE MG-CG iteration per step, committed iff the
+            # residual holds a 1e-2 gate; trips rewind the chunk to the
+            # robust program (fixed-2 + tolerance-stopped top-up).
+            over["poisson_fixed_iters"] = 1
+            over["poisson_fail_gate"] = 1e-2
+        return over
+
+    def _traced_inputs(self, current_func, xi):
+        """``(A_fn, eps_fn, mu_boundary_fn)`` of the traced path, each a
+        function of a 0-d time tensor on the solve's device (None where
+        the input is static or host-evaluated)."""
+        dev = self.torch_device
+        A_fn = eps_fn = mu_boundary_fn = None
+        if self._jittable_currents:
+            # Terminal currents -> Neumann BC values is LINEAR with a static
+            # matrix: density on terminal i's boundary edges is
+            # (-1/length_i) * sum_{j != i} I_j. Bake the (B, n_terminals)
+            # matrix and trace only the user's currents function.
+            n_b = len(self.mesh.edge_mesh.boundary_edge_indices)
+            T = np.zeros((n_b, len(self.terminal_names)), dtype=self.rdtype)
+            for term in self.terminal_info:
+                for j, name in enumerate(self.terminal_names):
+                    if name != term.name:
+                        T[term.boundary_edge_indices, j] = -1.0 / term.length
+            columns = [convert.to_tensor(T[:, j], dev)
+                       for j in range(T.shape[1])]
+            names, scale = tuple(self.terminal_names), self.J_scale
+
+            def mu_boundary_fn(t):
+                currents = current_func(t)
+                # T @ I, summed over the terminals in order (no atomics).
+                out = None
+                for col, name in zip(columns, names):
+                    I = torch.as_tensor(currents[name], dtype=col.dtype,
+                                        device=dev) * scale
+                    out = col * I if out is None else out + col * I
+                return out
+
+        if self._jittable_A:
+            # Padded grid edge centers (invalid entries sit at the mesh
+            # centroid, so user functions stay finite there).
+            xe = (xi * np.asarray(self.host_sten.ec_x)).ravel()
+            ye = (xi * np.asarray(self.host_sten.ec_y)).ravel()
+            ze = self.device.layer.z0 * np.ones_like(xe)
+            coords = [convert.to_tensor(c, dev) for c in (xe, ye, ze)]
+            out_shape = (3,) + self.maps.shape + (2,)
+
+            def A_fn(t, _p=self.applied_vector_potential):
+                A = _p.evaluate_traced(*coords, t=t)
+                A = self.A_scale * torch.as_tensor(A, device=dev)[:, :2]
+                return A.reshape(out_shape)
+
+        if self._jittable_eps:
+            xs = [convert.to_tensor(
+                (xi * np.asarray(c)).ravel(), dev)
+                for c in (self.host_sten.site_x, self.host_sten.site_y)]
+            eps_shape = self.maps.shape
+
+            def eps_fn(t, _p=self.disorder_epsilon):
+                return torch.as_tensor(
+                    _p.evaluate_traced(*xs, t=t), device=dev
+                ).reshape(eps_shape)
+
+        return A_fn, eps_fn, mu_boundary_fn
 
     def _failover_chunk_fn(self, state: GridState):
         """Run the fast program; if its sticky ``failed`` flag is set (one
         host read per chunk), rewind to ``state`` and re-run the chunk
         with the robust program."""
-        out = self._fast_chunk_fn(self.sten, self.amg, state)
+        out = self._fast_chunk_fn(self.sten, self.amg, state,
+                                  self._screening)
         if not bool(out[0].failed):
             return out
         self._failover_count += 1
@@ -408,7 +639,8 @@ class TDGLSolver:
             "fast chunk flagged an anomalous step; rewinding and re-running"
             " the chunk with the robust (retry/top-up) program"
         )
-        return self._raw_chunk_fn(self.sten, self.amg, state)
+        return self._raw_chunk_fn(self.sten, self.amg, state,
+                                  self._screening)
 
     def _poisson_fixed_iters(self, options: SolverOptions) -> Optional[int]:
         """Resolve ``poisson_fixed_iterations`` (None = auto, 0 = forced
@@ -453,17 +685,25 @@ class TDGLSolver:
     def _resolve_factor_link_phases(self, options: SolverOptions) -> None:
         """Resolve ``SolverOptions.factor_link_phases`` (None = auto).
 
-        Auto enables the factored link phases on float32 solves when the
-        applied potential passes a float64 separability check (max
-        ``|a - f - g|`` <= 1e-9 relative over the full padded grid);
-        explicit True raises on a non-separable potential. Sets
-        ``cfg.factor_link_phases`` and caches the smooth full-grid applied
-        potential for the state fill.
+        Auto enables the factored link phases on float32 static-A
+        unscreened solves when the applied potential passes a float64
+        separability check (max ``|a - f - g|`` <= 1e-9 relative over the
+        full padded grid); explicit True raises on an ineligible solve or
+        a non-separable potential. Sets ``cfg.factor_link_phases`` and
+        caches the smooth full-grid applied potential for the state fill.
         """
         self._full_A_grid = None
         opt = options.factor_link_phases
-        if opt is False or (opt is None and options.dtype != "float32"):
+        eligible = (not self.dynamic_vector_potential
+                    and not options.include_screening)
+        if opt is False or (opt is None and (
+                not eligible or options.dtype != "float32")):
             return
+        if opt and not eligible:
+            raise SolverOptionsError(
+                "factor_link_phases requires a static (time-independent)"
+                " applied vector potential and screening off."
+            )
         A64 = self._full_grid_A64()
         dirs = np.asarray(self.host_sten.edge_dirs, np.float64)
         a = (A64[..., 0] * dirs[:, 0, None, None]
@@ -492,9 +732,11 @@ class TDGLSolver:
         )
 
     # -- host-side evaluation helpers ---------------------------------------
-    def _eval_A(self) -> np.ndarray:
+    def _eval_A(self, time: float) -> np.ndarray:
+        kwargs = (dict(t=time) if self.dynamic_vector_potential else dict())
         A = self.applied_vector_potential(
             self.edge_centers[:, 0], self.edge_centers[:, 1], self.z0,
+            **kwargs,
         )
         A = self.A_scale * np.asarray(A)[:, :2]
         if A.shape != self.edge_centers.shape:
@@ -503,19 +745,21 @@ class TDGLSolver:
             )
         return A.astype(self.rdtype)
 
-    def _eval_epsilon(self) -> np.ndarray:
+    def _eval_epsilon(self, time: float) -> np.ndarray:
+        kwargs = dict(t=time) if self.dynamic_epsilon else dict()
         if self.vectorized_epsilon:
-            eps = self.disorder_epsilon(self.sites)
+            eps = self.disorder_epsilon(self.sites, **kwargs)
         else:
             eps = np.array(
-                [float(self.disorder_epsilon(r)) for r in self.sites]
+                [float(self.disorder_epsilon(r, **kwargs))
+                 for r in self.sites]
             )
         return np.asarray(eps, dtype=self.rdtype)
 
-    def _mu_boundary(self) -> np.ndarray:
-        """Terminal current densities -> Neumann BC values per boundary
-        edge (the currents are static)."""
-        currents = self.current_func(0.0)
+    def _mu_boundary(self, time: float) -> np.ndarray:
+        """Terminal current densities at ``time`` -> Neumann BC values per
+        boundary edge."""
+        currents = self.current_func(time)
         mu_boundary = np.zeros(
             len(self.mesh.edge_mesh.boundary_edge_indices), dtype=self.rdtype
         )
@@ -538,7 +782,36 @@ class TDGLSolver:
                   sten.nbl_vals * mu_boundary[sten.nbl_col])
         return flat.reshape(self.maps.shape)
 
-    # -- state assembly ---------------------------------------------------------
+    def _host_update(self, state: GridState) -> GridState:
+        """Evaluate the non-traceable time-dependent inputs on the host at
+        the state's time (chunk size 1; the Runner calls this before every
+        chunk)."""
+        time = float(state.time)
+        updates = {}
+        if self.dynamic_vector_potential and not self._jittable_A:
+            A_new = self._eval_A(time)
+            prev_dt = float(state.prev_dt)
+            dirs = np.asarray(self.mesh.edge_mesh.directions,
+                              dtype=self.rdtype)
+            ndirs = dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+            prev = self.maps.grid_to_edge(state.A_applied.cpu().numpy())
+            dA_dt = np.einsum("ij,ij->i", (A_new - prev) / prev_dt, ndirs)
+            updates["A_applied"] = self.maps.edge_to_grid(A_new)
+            updates["dA_dt"] = self.maps.edge_to_grid(
+                dA_dt.astype(self.rdtype))
+        if self.dynamic_epsilon and not self._jittable_eps:
+            updates["epsilon"] = self.maps.site_to_grid(
+                self._eval_epsilon(time))
+        if self.dynamic_currents and not self._jittable_currents:
+            updates["neumann_term"] = self._host_neumann_term(
+                self._mu_boundary(time))
+        if updates:
+            state = state._replace(**{
+                k: convert.to_tensor(v, self.torch_device)
+                for k, v in updates.items()})
+        return state
+
+    # -- state assembly -------------------------------------------------------
     def _initial_state(self) -> GridState:
         """The grid state at t = 0 on ``torch_device`` (and its step-0
         export dict, ``self._initial_export``)."""
@@ -594,7 +867,7 @@ class TDGLSolver:
             A_induced=t(A_induced),
             A_applied=t(A_applied),
             epsilon=t(epsilon),
-            neumann_term=t(self._host_neumann_term(self._mu_boundary())),
+            neumann_term=t(self._host_neumann_term(self._mu_boundary(0.0))),
             dA_dt=t(zeros_e),
             tentative_dt=scalar(options.dt_init),
             prev_dt=scalar(options.dt_init),
@@ -614,15 +887,21 @@ class TDGLSolver:
                   else np.asarray(v)) for k, v in exported.items()}
         g2s = self.maps.grid_to_site
         g2e = self.maps.grid_to_edge
-        return dict(
+        data = dict(
             psi=g2s(ex["psi_real"]) + 1j * g2s(ex["psi_imag"]),
             mu=g2s(ex["mu"]),
             supercurrent=g2e(ex["supercurrent"]),
             normal_current=g2e(ex["normal_current"]),
             induced_vector_potential=g2e(ex["induced_vector_potential"]),
         )
+        if self.dynamic_vector_potential:
+            data["applied_vector_potential"] = g2e(
+                ex["applied_vector_potential"])
+        if self.dynamic_epsilon:
+            data["epsilon"] = g2s(ex["epsilon"])
+        return data
 
-    # -- main entry point ----------------------------------------------------------
+    # -- main entry point -----------------------------------------------------
     def _mesh_fingerprint(self) -> str:
         """SHA1 of the dimensionless mesh geometry (sites + elements).
 
@@ -665,10 +944,15 @@ class TDGLSolver:
         if self.probe_points is not None:
             running["mu"] = len(self.probe_points)
             running["theta"] = len(self.probe_points)
+        if options.include_screening:
+            running["screening_iterations"] = 1
 
         state = self._initial_state()
-        fixed = {"applied_vector_potential": self.current_A_applied,
-                 "epsilon": self.epsilon}
+        fixed = {}
+        if not self.dynamic_vector_potential:
+            fixed["applied_vector_potential"] = self.current_A_applied
+        if not self.dynamic_epsilon:
+            fixed["epsilon"] = self.epsilon
 
         with DataHandler(output_file=options.output_file,
                          logger=logger) as data_handler:
@@ -687,6 +971,8 @@ class TDGLSolver:
                 running_names_and_sizes=running,
                 chunk_size=self.chunk_size,
                 initial_export=self._initial_export,
+                host_update_fn=(self._host_update if self.host_dynamic
+                                else None),
                 checkpoint_meta={
                     "backend": "grid",
                     "mesh_fingerprint": self._mesh_fingerprint(),

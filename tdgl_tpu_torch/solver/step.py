@@ -3,8 +3,13 @@
 The two records of :mod:`tdgl_tpu.solver.step` that the grid backend
 shares (``StepConfig``, ``StepOutputs``), copied verbatim; the fields keep
 the JAX package's names and comments so a reader can find each
-counterpart. ``use_pallas_step`` and the screening, folding and traced-input
-fields have no effect in this package (see :mod:`.solver`).
+counterpart. The traced inputs (``A_fn``, ``eps_fn``, ``mu_boundary_fn``)
+map a 0-d time tensor to tensors on the solve's device. Fields of TPU-only
+options have no effect in this package: ``use_pallas_step``,
+``screening_fft_mxu``, ``screening_dft_bf16``, ``screening_eval_fn``,
+``poisson_use_mg``, ``poisson_sstep``, ``fold_link_weights``,
+``link_bf16`` and ``scan_unroll`` (the solver raises for the options that
+would set them; see :mod:`.solver`).
 """
 
 from __future__ import annotations

@@ -283,3 +283,139 @@ def test_solve_on_card_matches_cpu(mesh_device, cuda_device, tmp_path):
     assert np.abs(card.dynamics.mu - host.dynamics.mu).max() <= \
         1e-10 * np.abs(host.dynamics.mu).max()
     assert ttdgl.Solution.from_hdf5(card.path).equals(card)
+
+
+@pytest.mark.parametrize("stencil", ["real", "periodic"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("form", ["raw", "factored"])
+def test_supercurrent_form_and_abs_sq_match_plain(cuda_device, mesh_device,
+                                                  dtype, form, stencil):
+    """The RHS kernel's J_s-writing form against ``(poisson_rhs(sten, J_s,
+    ...), J_s)``, and the psi kernel with a given ``|psi|^2`` plane."""
+    solver = _solver(mesh_device, cuda_device, dtype)
+    state = solver._initial_state()
+    U = _links(solver, state)[form]
+    if stencil == "real":
+        sten, x = solver.sten, _inputs(solver)
+        x["neumann"] = state.neumann_term
+    else:
+        sten, x = _periodic(solver, solver.torch_dtype)
+    launches = step_kernels.fused_poisson_rhs.launches
+    rhs, J_s = step_kernels.fused_poisson_rhs(
+        sten, U, x["pr"], x["pi"], x["dA"], x["neumann"],
+        with_supercurrent=True)
+    assert step_kernels.fused_poisson_rhs.launches == launches + 1
+    rhs_ref, J_ref = step_kernels.plain_poisson_rhs(
+        sten, U, x["pr"], x["pi"], x["dA"], x["neumann"],
+        with_supercurrent=True)
+    tol = 3e-5 if dtype == "float32" else 1e-12
+    for got, ref in ((rhs, rhs_ref), (J_s, J_ref)):
+        scale = max(ref.abs().max().item(), 1.0)
+        assert (got - ref).abs().max().item() < tol * scale
+    # A |psi|^2 plane that is not pr^2 + pi^2 (the screened iterate's).
+    g, u = solver.cfg.gamma, solver.cfg.u
+    sq = (x["pr"] ** 2 + x["pi"] ** 2) * 0.9
+    args = (x["pr"], x["pi"], x["mu"], x["eps"], 1e-2)
+    got = step_kernels.fused_psi_update(g, u, sten, U, *args, abs_sq=sq)
+    ref = step_kernels.plain_psi_update(g, u, sten, U, *args, abs_sq=sq)
+    for a, b in zip(got[:3], ref[:3]):
+        err = (a - b).abs().max().item()
+        assert err < (3e-5 if dtype == "float32"
+                      else 1e-12 * max(b.abs().max().item(), 1.0))
+    assert bool(got[3]) == bool(ref[3])
+
+
+def test_rebinding_matches_fresh_operands(cuda_device, mesh_device):
+    """Operands rebound call by call give what a fresh StepOperands of the
+    same tensors gives, bit for bit."""
+    solver = _solver(mesh_device, cuda_device, "float32")
+    state = solver._initial_state()
+    x = _inputs(solver)
+    stencil = step_kernels.StencilOperands(solver.sten)
+    base = step_kernels.StepOperands(stencil, None, state.dA_dt,
+                                     state.neumann_term)
+    g, u = solver.cfg.gamma, solver.cfg.u
+    for scale in (0.5, 1.0, 2.0):
+        A = state.A_applied * scale
+        U = gs.edge_link_phases(solver.sten, A, shifted=False)
+        dA = x["dA"] * scale
+        neumann = state.neumann_term * scale
+        ops = base.rebind(U=U, dA_dt=dA, neumann_term=neumann)
+        fresh = step_kernels.StepOperands(solver.sten, U, dA, neumann)
+        a = ops.psi_update(g, u, x["pr"], x["pi"], x["mu"], x["eps"], 1e-2)
+        b = fresh.psi_update(g, u, x["pr"], x["pi"], x["mu"], x["eps"], 1e-2)
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+        r1, j1 = ops.poisson_rhs(x["pr"], x["pi"], with_supercurrent=True)
+        r2, j2 = fresh.poisson_rhs(x["pr"], x["pi"], with_supercurrent=True)
+        assert torch.equal(r1, r2) and torch.equal(j1, j2)
+    with pytest.raises(ValueError, match="contiguous"):
+        base.rebind(neumann_term=state.neumann_term.t().contiguous().t())
+
+
+def test_neumann_term_is_deterministic_on_card(cuda_device, mesh_device):
+    solver = _solver(mesh_device, cuda_device, "float64")
+    rng = np.random.default_rng(2)
+    n_b = len(mesh_device.mesh.edge_mesh.boundary_edge_indices)
+    mu_b = rng.normal(size=n_b)
+    ref = solver._host_neumann_term(mu_b)
+    mu_t = torch.tensor(mu_b, device=cuda_device)
+    got = [gs.neumann_boundary_term(solver.sten, mu_t) for _ in range(10)]
+    assert all(torch.equal(got[0], g) for g in got[1:])
+    assert np.abs(got[0].cpu().numpy() - ref).max() <= \
+        1e-15 * np.abs(ref).max()
+
+
+@ttdgl.jittable
+def _current_ramp(t):
+    bias = 1.0 + 2.0 * torch.clamp(t * 10.0, max=1.0)
+    return dict(source=bias, drain=-bias)
+
+
+@pytest.mark.parametrize("case", ["traced", "screened-robust",
+                                  "screened-fast"])
+def test_dynamic_and_screened_chunks_match_cpu(cuda_device, mesh_device,
+                                               case):
+    """Float64 chunks on the card through both kernels against the same
+    solver on the CPU, to 1e-10: a traced field and current ramp, and a
+    screened chunk in the robust and in the fast program."""
+    opts = dict(solve_time=1e9, dt_init=1e-4, adaptive=False, save_every=20,
+                dtype="float64", field_units="mT", current_units="uA")
+    if case == "traced":
+        kw = dict(applied_vector_potential=ttdgl.ConstantField(0.5)
+                  * ttdgl.LinearRamp(tmin=0.0, tmax=1e-3),
+                  terminal_currents=_current_ramp)
+    else:
+        opts.update(include_screening=True, screening_tolerance=1e-4,
+                    screening_error_norm="global",
+                    chunk_failover="off" if case == "screened-robust"
+                    else "auto")
+        kw = dict(applied_vector_potential=0.5)
+    out = {}
+    for where in ("cuda", "cpu"):
+        solver = ttdgl.TDGLSolver(mesh_device, ttdgl.SolverOptions(**opts),
+                                  torch_device=where, **kw)
+        step_kernels.reset_launch_counts()
+        state = solver._initial_state()
+        if case == "screened-fast":
+            state, outputs, _ = solver._fast_chunk_fn(
+                solver.sten, solver.amg, state, solver._screening)
+        else:
+            state, outputs, _ = solver.chunk_fn(state)
+        out[where] = (state, outputs,
+                      [fn.launches for fn in step_kernels.KERNELS])
+    (g, g_out, launches), (c, c_out, _) = out["cuda"], out["cpu"]
+    assert launches[1] >= 20 and launches[0] >= 20
+    assert int(g.step) == int(c.step)
+    if case == "screened-fast":
+        # Every slot launches both kernels once, frozen ones included (a
+        # cold start trips the fast program's gate within the chunk).
+        assert launches == [20, 20]
+    else:
+        assert int(g.step) == 20
+    assert torch.equal(g_out.screening_iterations.cpu(),
+                       c_out.screening_iterations)
+    for name in ("psi_r", "psi_i", "mu", "A_induced", "A_applied",
+                 "neumann_term"):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        assert (a - b).abs().max() <= 1e-10 * max(b.abs().max(), 1e-30), \
+            name

@@ -132,9 +132,13 @@ def test_float32_default_options_trajectory():
 def test_unported_paths_raise():
     device = _box_device(ttdgl)
     opts = dict(solve_time=1.0, field_units="mT", current_units="uA")
-    with pytest.raises(NotImplementedError, match="screening"):
+    with pytest.raises(ttdgl.SolverOptionsError, match="mxu"):
         ttdgl.TDGLSolver(device, ttdgl.SolverOptions(
-            include_screening=True, **opts), torch_device="cpu")
+            include_screening=True, screening_kernel="mxu", **opts),
+            torch_device="cpu")
+    with pytest.raises(NotImplementedError, match="unstructured"):
+        ttdgl.TDGLSolver(device, ttdgl.SolverOptions(
+            solver_backend="ell", **opts), torch_device="cpu")
     solver = ttdgl.TDGLSolver(device, ttdgl.SolverOptions(**opts),
                               torch_device="cpu")
     with pytest.raises(NotImplementedError, match="resume"):

@@ -68,7 +68,10 @@ def test_package_has_modules(trees):
                      "solver/runner.py", "solver/solve.py",
                      "solution/solution.py", "solution/data.py",
                      "solution/tri_interp.py", "utils/h5lite.py",
-                     "about.py", "version.py", "em.py", "fluxoid.py"):
+                     "about.py", "version.py", "em.py", "fluxoid.py",
+                     "ops/fft_screening.py", "ops/screening.py",
+                     "sources/scaling.py", "sources/loop.py",
+                     "sources/constant.py", "parameter.py"):
         assert required in names
 
 
