@@ -28,7 +28,7 @@ the robust program. Phases (each prints its seconds):
    current ramp, and a screened chunk in the robust and the fast program;
 6. the bare chunk loop: ``TDGLSolver(..., torch_device="cuda")``,
    ``_initial_state()`` and ``chunk_fn`` calls until ``solve_time`` (about
-   2,000 steps), one host read per chunk, nothing written; static 0.5 mT
+   1,000 steps), one host read per chunk, nothing written; static 0.5 mT
    field and 20 uA source current, screening off;
 7. ``tdgl_tpu_torch.solve()`` on the same device with the same options
    (the package's entry point: the same chunks, plus the Runner's
@@ -41,7 +41,7 @@ the robust program. Phases (each prints its seconds):
    wrapper call (one kernel, no fill or compare);
 9. a traced ramp through ``solve()``: the applied field ramps as
    ``ConstantField(0.5) * LinearRamp`` and a ``jittable`` source current
-   from 0 to 20 uA over the first half of ``--ramp-time`` (about 2,000
+   from 0 to 20 uA over the first half of ``--ramp-time`` (about 1,000
    steps in chunks of 500, inputs evaluated on the card inside the
    chunk), its steps/s beside phase 7's, the fast step's ops and device
    time, and the mean probe voltage over the first and the last chunk;
@@ -49,11 +49,30 @@ the robust program. Phases (each prints its seconds):
    before every step (chunk size 1, about 50 steps);
 10. screening through ``solve()`` at ``bench.py``'s screened operating
     point (0.5 mT, tolerance 1e-3, the fft kernel, Anderson, the fast
-    program with site evaluation and failover; about 1,000 steps in chunks
+    program with site evaluation and failover; about 500 steps in chunks
     of 200): steps/s, failovers, screening iterations, launches per step
     slot (exactly one of each kernel in every committed fast chunk), the
     fast and robust screened step's ops and device time, and the device ms
-    of one induced-potential evaluation (exact and site-evaluated).
+    of one induced-potential evaluation (exact and site-evaluated);
+11. the unstructured (ELL) backend at full width: the same film meshed
+    with the default Delaunay mesher (~50,800 sites), the same terminals,
+    probes, field, current and float32 options, AMG-preconditioned CG:
+    the mesher's, operators' and AMG's set-up seconds, the bare chunk loop
+    and ``solve()`` (about 1,000 steps each in chunks of 200; steps/s,
+    mean CG iterations, Euler retries, host reads per step), the current
+    through the film's vertical centre line on the final snapshot (within
+    10% of 20 uA), ops, device time and busy share per step, the device
+    ms of one ELL scalar-Laplacian apply, covariant-Laplacian apply and
+    AMG V-cycle against their bytes bounds, and a screened run (0.5 mT,
+    the pairwise ``xla`` kernel, Anderson, 50 steps) with the device ms of
+    one pairwise induced-potential evaluation. The two CUDA kernels'
+    launch counters must read 0 throughout: the ELL step has no kernel of
+    its own (the JAX package's ELL path has no Pallas kernel).
+
+Phase 5 also holds float64 ELL chunks on a small Delaunay mesh on the card
+against the CPU (static, traced ramp, screened ``xla``; 1e-10, equal step,
+retry, CG and screening iteration counts) and runs a float32 ELL chunk
+twice (bitwise equal).
 
 Phases 6, 7, 9 and 10 each reset the kernels' launch counters just before
 each of their runs and read them just after; each count must match the
@@ -62,7 +81,8 @@ included). The last two stdout lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py`` (one
 GPU); ``--chunk`` and ``--solve-time`` resize phases 6 and 7,
 ``--ramp-time``/``--ramp-chunk`` phase 9, ``--screen-time``/
-``--screen-chunk`` phase 10.
+``--screen-chunk`` phase 10, ``--ell-time``/``--ell-chunk``/
+``--ell-screen-steps`` phase 11.
 """
 
 import argparse
@@ -114,11 +134,12 @@ class Phase:
             log(f"[phase] {self.name}: {self.seconds:.2f} s")
 
 
-def bench_device(pkg, target_sites: int = 50_000):
+def bench_device(pkg, target_sites: int = 50_000, structured: bool = True):
     """The benchmark film (``bench.build_device``), built with the port,
     with a source and a drain terminal on its left and right edges and
-    two probe points at +-side/4 (the terminals do not change the
-    mesh)."""
+    two probe points at +-side/4 (the terminals do not change the mesh);
+    on the structured lattice, or (``structured=False``) with the default
+    Delaunay mesher (the unstructured backend's film)."""
     import numpy as np
 
     layer = pkg.Layer(coherence_length=1.0, london_lambda=2.0,
@@ -136,7 +157,7 @@ def bench_device(pkg, target_sites: int = 50_000):
                         probe_points=[(-side / 4, 0), (side / 4, 0)],
                         length_units="um")
     device.make_mesh(min_points=target_sites, max_edge_length=0.75,
-                     structured=True)
+                     structured=structured)
     return device
 
 
@@ -474,6 +495,69 @@ def time_kernels(solver, cases, cycles_per_ms: float):
     return out
 
 
+def device_records(fn):
+    """``(device us, count, name)`` of each device record class (kernels,
+    memsets, copies) of one ``fn()`` run under ``torch.profiler``, after a
+    warm-up run under the same profiler (its tracer drops the first
+    records after it starts), largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")), reverse=True)
+
+
+def count_ops(fn) -> int:
+    """Torch ops dispatched by one ``fn()`` call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counter = OpCount()
+    with counter:
+        fn()
+    return counter.n
+
+
+def profile_steps(name, run, prof_steps, walls):
+    """Torch ops, device kernel time and device busy share per step of
+    ``run()`` (``prof_steps`` steps), beside ``walls`` (unprofiled wall ms
+    per step); logs the largest kernel classes and returns
+    ``{wall_ms, ops, device_ms, busy}``."""
+    import torch
+
+    ops = count_ops(run) / prof_steps
+    torch.cuda.synchronize()
+    kernels = [(us / prof_steps, count / prof_steps, key)
+               for us, count, key in device_records(run)]
+    device_ms = sum(k[0] for k in kernels) / 1e3
+    busy = 100 * device_ms / statistics.median(walls)
+    log(f"  {name}: wall ms/step {', '.join(f'{w:.2f}' for w in walls)};"
+        f" torch ops/step {ops:.1f}; device kernel"
+        f" time {device_ms:.3f} ms/step, {sum(k[1] for k in kernels):.1f}"
+        f" device records/step, busy {busy:.1f}% of the median wall")
+    for us, count, key in kernels[:8]:
+        log(f"    {us:8.2f} us/step x {count:6.1f}  {key[:70]}")
+    return dict(wall_ms=statistics.median(walls), ops=ops,
+                device_ms=device_ms, busy=busy / 100)
+
+
 def time_breakdown(solver, state, steps: int = 100, prof_steps: int = 20,
                    programs=("fast", "robust"), psi_records: bool = True):
     """Where a step's time goes, for the fast and the robust chunk program
@@ -483,35 +567,10 @@ def time_breakdown(solver, state, steps: int = 100, prof_steps: int = 20,
     per step, its share of the unprofiled wall (median run) and the
     largest kernels. Returns ``{program: {wall_ms, ops, device_ms}}``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    from torch.utils._python_dispatch import TorchDispatchMode
 
     from tdgl_tpu_torch.models import gtdgl_stencil as gs
     from tdgl_tpu_torch.ops.step_kernels import StepOperands
     from tdgl_tpu_torch.solver.grid_step import make_grid_chunk_fn
-
-    def profiled(fn):
-        """``torch.profiler`` over one ``fn()`` run, after a warm-up run
-        under the same profiler (its tracer drops the first records after
-        it starts)."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        return prof
-
-    class OpCount(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
 
     result = {}
     screening = solver._screening
@@ -527,29 +586,9 @@ def time_breakdown(solver, state, steps: int = 100, prof_steps: int = 20,
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) / steps * 1e3)
         short = make_grid_chunk_fn(cfg, prof_steps)
-        counter = OpCount()
-        with counter:
-            short(solver.sten, solver.amg, state, screening)
-        torch.cuda.synchronize()
-        prof = profiled(lambda: short(solver.sten, solver.amg, state,
-                                      screening))
-        # Device-side records only (kernels, memsets, copies).
-        kernels = sorted(
-            ((e.self_device_time_total / prof_steps, e.count / prof_steps,
-              e.key) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not e.key.startswith("ProfilerStep")),
-            reverse=True)
-        device_ms = sum(k[0] for k in kernels) / 1e3
-        busy = 100 * device_ms / statistics.median(walls)
-        log(f"  {name}: wall ms/step {', '.join(f'{w:.2f}' for w in walls)};"
-            f" torch ops/step {counter.n / prof_steps:.1f}; device kernel"
-            f" time {device_ms:.3f} ms/step, {sum(k[1] for k in kernels):.1f}"
-            f" device records/step, busy {busy:.1f}% of the median wall")
-        for us, count, key in kernels[:8]:
-            log(f"    {us:8.2f} us/step x {count:6.1f}  {key[:70]}")
-        result[name] = dict(wall_ms=statistics.median(walls),
-                            ops=counter.n / prof_steps, device_ms=device_ms)
+        result[name] = profile_steps(
+            name, lambda: short(solver.sten, solver.amg, state, screening),
+            prof_steps, walls)
     if not psi_records:
         return result
 
@@ -565,10 +604,7 @@ def time_breakdown(solver, state, steps: int = 100, prof_steps: int = 20,
                            state.psi_i, state.mu, state.epsilon,
                            state.tentative_dt)
 
-    prof = profiled(psi_calls)
-    records = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("ProfilerStep")}
+    records = {key: count for _, count, key in device_records(psi_calls)}
     others = {k: n for k, n in records.items()
               if "psi_update_kernel" not in k}
     per_call = sum(records.values()) / calls
@@ -733,22 +769,453 @@ def check_small_dynamic_chunks(pkg):
             assert int(g.step) == 20, case
 
 
+def small_ell_device(pkg):
+    """The small film of :func:`small_device` on the default (Delaunay)
+    mesh: the unstructured (ELL) backend."""
+    layer = pkg.Layer(coherence_length=1.0, london_lambda=2.0,
+                      thickness=0.1, conductivity=10.0)
+    film = pkg.Polygon("film", points=pkg.box(14, 8)).resample(200)
+    hole = pkg.Polygon("hole", points=pkg.circle(1.0, center=(2, 1)))
+    source = pkg.Polygon("source", points=pkg.box(1, 6, center=(-7, 0)))
+    drain = pkg.Polygon("drain", points=pkg.box(1, 6, center=(7, 0)))
+    device = pkg.Device("small_ell", layer=layer, film=film, holes=[hole],
+                        terminals=[source, drain],
+                        probe_points=[(-4, 0), (4, 0)], length_units="um")
+    device.make_mesh(min_points=700)
+    return device
+
+
+class EulerCalls:
+    """While active, counts the ELL step's psi updates
+    (``models.gtdgl.implicit_euler_psi`` calls): one per step, or per
+    screening fixed-point iteration, plus one per discriminant retry."""
+
+    def __enter__(self):
+        from tdgl_tpu_torch.models import gtdgl
+
+        self.n = 0
+        self._orig = orig = gtdgl.implicit_euler_psi
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return orig(*args, **kwargs)
+
+        gtdgl.implicit_euler_psi = counted
+        return self
+
+    def __exit__(self, *exc):
+        from tdgl_tpu_torch.models import gtdgl
+
+        gtdgl.implicit_euler_psi = self._orig
+
+
+class HostReads:
+    """While active, counts reads of a tensor's value on the card by the
+    host (``bool()``, ``int()``, ``float()``, ``.item()``, ``.tolist()``,
+    ``.cpu()``, ``.numpy()`` of a CUDA tensor): each waits for the card."""
+
+    NAMES = ("__bool__", "__int__", "__float__", "item", "tolist", "cpu",
+             "numpy")
+
+    def __enter__(self):
+        import torch
+
+        self.n = 0
+        self._saved = {name: torch.Tensor.__dict__.get(name)
+                       for name in self.NAMES}
+
+        def counted(name):
+            base = getattr(torch.Tensor, name)
+
+            def read(tensor, *args, **kwargs):
+                if tensor.is_cuda:
+                    self.n += 1
+                return base(tensor, *args, **kwargs)
+            return read
+
+        for name in self.NAMES:
+            setattr(torch.Tensor, name, counted(name))
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for name, fn in self._saved.items():
+            if fn is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)
+
+
+def check_small_ell_chunks(pkg):
+    """Float64 ELL chunks of 20 steps on a small Delaunay mesh with
+    terminals, on the card against the CPU (1e-10 relative; equal step,
+    retry, CG and screening iteration counts): static inputs with the
+    adaptive dt, a traced field and current ramp, and a screened (``xla``)
+    chunk; none launches a CUDA step kernel. Then a float32 chunk twice on
+    the card: bitwise equal."""
+    import torch
+
+    from tdgl_tpu_torch.ops import step_kernels as sk
+
+    dev = small_ell_device(pkg)
+    base = dict(solve_time=1e9, dt_init=1e-3, save_every=20,
+                dtype="float64", field_units="mT", current_units="uA")
+    static = dict(applied_vector_potential=0.5,
+                  terminal_currents=dict(source=3.0, drain=-3.0))
+    cases = {
+        "ELL static": (base, static),
+        "ELL traced ramp": (base, dict(
+            applied_vector_potential=pkg.ConstantField(0.5)
+            * pkg.LinearRamp(tmin=0.0, tmax=1e-2),
+            terminal_currents=CurrentRamp(3.0, 1e-2))),
+        "ELL screened (xla)": (dict(
+            base, dt_init=1e-4, adaptive=False, include_screening=True,
+            screening_tolerance=1e-4, screening_error_norm="global"),
+            dict(applied_vector_potential=0.5)),
+    }
+    for case, (opts, inputs) in cases.items():
+        out = {}
+        for where in ("cuda", "cpu"):
+            solver = pkg.TDGLSolver(dev, pkg.SolverOptions(**opts),
+                                    torch_device=where, **inputs)
+            assert not solver.structured
+            sk.reset_launch_counts()
+            with EulerCalls() as calls:
+                state, outputs, _ = solver.chunk_fn(solver._initial_state())
+            out[where] = (state, outputs, calls.n,
+                          [fn.launches for fn in sk.KERNELS])
+        (g, g_out, g_calls, launches), (c, c_out, c_calls, _) = (
+            out["cuda"], out["cpu"])
+        rel = {}
+        for name in ("psi", "mu", "supercurrent", "normal_current",
+                     "A_induced", "A_applied", "mu_boundary"):
+            a, b = getattr(g, name).cpu(), getattr(c, name)
+            rel[name] = ((a - b).abs().max()
+                         / max(b.abs().max().item(), 1e-30)).item()
+        its = g_out.screening_iterations.tolist()
+        psi_updates = max(sum(its), int(g.step))
+        log(f"  {case}: max rel err {max(rel.values()):.3e} ({rel}), steps"
+            f" {int(g.step)}, psi updates {g_calls} (retries"
+            f" {g_calls - psi_updates}), CG iterations"
+            f" {g_out.cg_iterations.tolist()}, screening iterations {its},"
+            f" CUDA kernel launches {launches}")
+        assert max(rel.values()) < 1e-10, (case, rel)
+        assert int(g.step) == int(c.step) == 20, case
+        assert g_calls == c_calls, (case, g_calls, c_calls)
+        for field in ("cg_iterations", "screening_iterations", "valid"):
+            assert torch.equal(getattr(g_out, field).cpu(),
+                               getattr(c_out, field)), (case, field)
+        assert launches == [0, 0], (case, launches)
+    solver = pkg.TDGLSolver(dev, pkg.SolverOptions(**dict(
+        base, dtype="float32")), torch_device="cuda", **static)
+    start = solver._initial_state()
+    runs = [solver.chunk_fn(start)[0] for _ in range(2)]
+    same = all(torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+               for name in ("psi", "mu", "supercurrent", "normal_current",
+                            "tentative_dt"))
+    log(f"  ELL float32 chunk twice on the card: bitwise equal {same}")
+    assert same
+
+
+def ell_breakdown(solver, state, steps: int = 100, prof_steps: int = 20):
+    """Where an ELL step's time goes, from ``state``: wall ms per step (3
+    runs of ``steps`` steps), torch ops, device kernel time and busy share
+    per step (``torch.profiler`` over ``prof_steps`` steps), host reads
+    and psi updates per step."""
+    import torch
+
+    from tdgl_tpu_torch.solver.step import make_chunk_fn
+
+    run = make_chunk_fn(solver.cfg, steps)
+    args = (solver.op, solver._screening, solver.amg, state)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / steps * 1e3)
+    short = make_chunk_fn(solver.cfg, prof_steps)
+    with HostReads() as reads, EulerCalls() as calls:
+        _, outputs, _ = short(*args)
+    rec = profile_steps("ELL step", lambda: short(*args), prof_steps, walls)
+    rec.update(host_reads=reads.n / prof_steps,
+               psi_updates=calls.n / prof_steps,
+               cg_its=float(outputs.cg_iterations.float().mean()))
+    log(f"  ELL step: {rec['host_reads']:.2f} host reads, "
+        f"{rec['psi_updates']:.2f} psi updates and {rec['cg_its']:.2f} CG"
+        f" iterations per step over the profiled window")
+    return rec
+
+
+def time_ell_applies(solver, state, cycles_per_ms: float):
+    """Device ms per call of one ELL scalar-Laplacian apply, one
+    covariant-Laplacian apply and one AMG V-cycle at the film's shapes
+    (queued CUDA events; the call counts keep each run of calls, ~5, ~25
+    and ~26 kernels per call, inside CUDA's launch queue), each beside
+    its bytes bound at the HBM rate:
+    each input read once (the index tables as stored, int64) and the
+    output written once."""
+    import numpy as np
+    import torch
+
+    from tdgl_tpu_torch.models import gtdgl
+    from tdgl_tpu_torch.ops.amg import make_amg_apply
+
+    op, amg = solver.op, solver.amg
+    n, k = op.nbr_site.shape
+    e = op.edges.shape[0]
+    nc, m = amg.members.shape
+    rng = np.random.default_rng(13)
+    f32 = dict(dtype=torch.float32, device=solver.torch_device)
+    x = torch.tensor(rng.normal(size=n), **f32)
+    psi = torch.tensor(rng.normal(size=(n, 2)) * 0.5, **f32)
+    U = gtdgl.edge_link_phases(state.A_applied, op.edge_directions)
+    apply_amg = make_amg_apply(solver.cfg.amg_omega)
+
+    def apply_A(v):
+        return -gtdgl.scalar_laplacian_sym(op, v)
+
+    f, i = 4, 8   # bytes of a float32 value and of an int64 index
+    applies = {
+        # x, nbr_site, w_sym, w_sym_rowsum in; S x out.
+        "scalar_laplacian_sym": (
+            lambda: gtdgl.scalar_laplacian_sym(op, x), 100,
+            f * n + i * n * k + f * n * k + f * n + f * n),
+        # U, psi, nbr_edge, nbr_sign, nbr_site, w_lap, w_lap_rowsum,
+        # fixed_mask in; (N, 2) out.
+        "covariant_laplacian": (
+            lambda: gtdgl.covariant_laplacian(op, U, psi), 20,
+            2 * f * e + 2 * f * n + 2 * i * n * k + 2 * f * n * k
+            + 2 * f * n + 2 * f * n),
+        # r, inv_diag, cluster_ids, members, Ac_inv, and the tables of
+        # the two applies (nbr_site, w_sym, w_sym_rowsum) in; z out.
+        "amg_vcycle": (
+            lambda: apply_amg(apply_A, amg, x), 15,
+            f * n + f * n + i * n + i * nc * m + f * nc * nc
+            + i * n * k + f * n * k + f * n + f * n),
+    }
+    out = {}
+    for name, (fn, calls, nbytes) in applies.items():
+        ms = queued_ms(fn, calls, cycles_per_ms, repeats=5)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(ms=ms, bound_ms=bound, bound_by="bytes",
+                         bound_share=bound / ms, bytes=nbytes)
+        log(f"  {name}: device {ms:.5f} ms per call (queued); bytes bound"
+            f" {bound:.5f} ms ({nbytes} bytes at 3.35 TB/s), share"
+            f" {100 * bound / ms:.1f}% (N {n}, K {k}, E {e}, nc {nc},"
+            f" M {m})")
+    return out
+
+
+def run_ell_main_path(pkg, args, inputs):
+    """Phase 11: the unstructured (ELL) backend at full width (see the
+    module docstring). Returns the numbers it prints."""
+    import numpy as np
+    import torch
+
+    from tdgl_tpu_torch.ops import step_kernels as sk
+    from tdgl_tpu_torch.ops.screening import induced_vector_potential
+    from tdgl_tpu_torch.solver import solver as solver_module
+
+    rec = {}
+    t0 = time.perf_counter()
+    device = bench_device(pkg, structured=False)
+    rec["mesher_s"] = time.perf_counter() - t0
+    n_sites = len(device.mesh.sites)
+    options = dict(solve_time=args.ell_time, dt_init=1e-4, dt_max=1e-2,
+                   save_every=args.ell_chunk, field_units="mT",
+                   current_units="uA", dtype="float32")
+    spans = {"operators": [], "AMG": []}
+    saved = (solver_module.build_operators, solver_module.build_amg)
+
+    def timed(fn, span):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spans[span].append(time.perf_counter() - t)
+        return run
+
+    solver_module.build_operators = timed(saved[0], "operators")
+    solver_module.build_amg = timed(saved[1], "AMG")
+    try:
+        t0 = time.perf_counter()
+        solver = pkg.TDGLSolver(device, pkg.SolverOptions(**options),
+                                torch_device="cuda", **inputs)
+        rec["solver_setup_s"] = time.perf_counter() - t0
+    finally:
+        solver_module.build_operators, solver_module.build_amg = saved
+    rec.update(sites=n_sites, operators_s=spans["operators"][0],
+               amg_s=spans["AMG"][0], K=int(solver.op.nbr_site.shape[1]),
+               edges=int(solver.op.edges.shape[0]),
+               aggregates=int(solver.amg.Ac_inv.shape[0]))
+    log(f"  {n_sites} sites, {rec['edges']} edges, K {rec['K']},"
+        f" {rec['aggregates']} AMG aggregates; mesher"
+        f" {rec['mesher_s']:.2f} s, operators {rec['operators_s']:.2f} s,"
+        f" AMG {rec['amg_s']:.2f} s, solver set-up"
+        f" {rec['solver_setup_s']:.2f} s")
+    assert not solver.structured and solver.cfg.use_amg
+    assert all(t.device.type == solver.torch_device.type
+               for t in list(solver.op) + list(solver.amg))
+
+    # The bare chunk loop.
+    state = solver._initial_state()
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    chunks, cg, valid = 0, [], 0
+    with HostReads() as reads, EulerCalls() as calls:
+        t0 = time.perf_counter()
+        while True:
+            state, outputs, exported = solver.chunk_fn(state)
+            chunks += 1
+            diag = exported["diagnostics"].cpu().numpy()
+            n_valid = int(outputs.valid.sum())
+            valid += n_valid
+            cg.append(outputs.cg_iterations[:n_valid].float())
+            if diag[4] or n_valid < solver.chunk_size:
+                break
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    loop_launches = [fn.launches for fn in sk.KERNELS]
+    steps = int(state.step)
+    rec.update(loop_steps=steps, loop_s=loop_s,
+               loop_steps_per_s=steps / loop_s,
+               cg_per_step=float(torch.cat(cg).mean()),
+               retries=calls.n - steps, reads_per_step=reads.n / steps,
+               loop_launches=loop_launches)
+    psi_abs = torch.sqrt(torch.sum(state.psi**2, dim=-1))
+    log(f"  bare chunk loop: {steps} steps in {chunks} chunks,"
+        f" {loop_s:.2f} s = {steps / loop_s:.2f} steps/s, mean CG"
+        f" iterations {rec['cg_per_step']:.3f} per step, Euler retries"
+        f" {rec['retries']}, host reads {rec['reads_per_step']:.2f} per"
+        f" step, |psi| in [{psi_abs.min().item():.4f},"
+        f" {psi_abs.max().item():.4f}], CUDA kernel launches"
+        f" {loop_launches}")
+    assert not bool(state.failed) and bool(state.done)
+    for name in ("psi", "mu", "supercurrent", "normal_current"):
+        assert bool(torch.isfinite(getattr(state, name)).all()), name
+    assert tuple(state.psi.shape) == (n_sites, 2)
+    assert loop_launches == [0, 0], loop_launches
+
+    # solve(): the Runner, the output file, the Solution.
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        solution = pkg.solve(device, pkg.SolverOptions(
+            output_file=os.path.join(tmp, "ell.h5"), **options),
+            torch_device="cuda", **inputs)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        solve_launches = [fn.launches for fn in sk.KERNELS]
+        same = pkg.Solution.from_hdf5(solution.path).equals(solution)
+        solve_steps = int(solution.tdgl_data.state["step"])
+        side = float(np.sqrt(50_000 * 0.238))
+        ys = np.linspace(-side / 2, side / 2, 2001)
+        coords = np.stack([np.zeros_like(ys), ys], axis=1)
+        t0 = time.perf_counter()
+        current = solution.current_through_path(coords, with_units=False)
+        current_s = time.perf_counter() - t0
+        psi = np.abs(solution.tdgl_data.psi)
+        voltage = solution.dynamics.mean_voltage()
+    rec.update(solve_steps=solve_steps, solve_s=solve_s,
+               solve_steps_per_s=solve_steps / solve_s,
+               current_uA=current, solve_launches=solve_launches)
+    log(f"  solve(): {solve_steps} steps, {solve_s:.2f} s wall ="
+        f" {solve_steps / solve_s:.2f} steps/s (bare loop"
+        f" {steps / loop_s:.2f}); current through x = 0 on the final"
+        f" snapshot {current:.6g} uA (applied 20 uA; {current_s:.2f} s to"
+        f" compute), mean probe voltage {voltage:.6g} V0, |psi| in"
+        f" [{psi.min():.4f}, {psi.max():.4f}], CUDA kernel launches"
+        f" {solve_launches}, Solution.from_hdf5(path).equals(solution):"
+        f" {same}")
+    assert same and np.isfinite(psi).all() and np.isfinite(voltage)
+    assert solve_launches == [0, 0], solve_launches
+    assert abs(current - 20.0) <= 0.1 * 20.0, current
+
+    # Where the step's time goes, and the ELL applies against their bounds.
+    sk.reset_launch_counts()
+    rec["breakdown"] = ell_breakdown(solver, state._replace(
+        end_time=torch.full_like(state.time, 1e9),
+        done=torch.zeros_like(state.done)))
+    rec["applies"] = time_ell_applies(solver, state, sleep_cycles_per_ms())
+
+    # Screened: the same film, 0.5 mT, no current, the pairwise kernel.
+    scr_opts = dict(options, solve_time=1e9,
+                    save_every=args.ell_screen_steps,
+                    include_screening=True, screening_tolerance=1e-3,
+                    screening_solver="anderson")
+    scr = pkg.TDGLSolver(device, pkg.SolverOptions(**scr_opts),
+                         torch_device="cuda", applied_vector_potential=0.5)
+    assert scr._screening_kernel == "xla" and scr.cfg.screening_cg_iters == 32
+    scr_state = scr._initial_state()
+    torch.cuda.synchronize()
+    with HostReads() as scr_reads:
+        t0 = time.perf_counter()
+        scr_state, scr_out, _ = scr.chunk_fn(scr_state)
+        torch.cuda.synchronize()
+        scr_s = time.perf_counter() - t0
+    scr_steps = int(scr_state.step)
+    its = scr_out.screening_iterations.float()
+    a_ind = torch.abs(scr_state.A_induced).max().item()
+    rng = np.random.default_rng(17)
+    Jw = torch.tensor(rng.normal(size=(n_sites, 2)), dtype=torch.float32,
+                      device=scr.torch_device)
+    ec = scr.op.edge_centers
+    sites = scr.op.sites
+    records = device_records(lambda: induced_vector_potential(ec, sites,
+                                                              Jw))
+    eval_ms = sum(us for us, _, _ in records) / 1e3
+    e = ec.shape[0]
+    # Each (edge, site) pair: 2 differences, 2 squares, an add, a clamp,
+    # an rsqrt and 2 multiply-adds of the product.
+    eval_bound = max(4 * (2 * e + 4 * n_sites + 2 * e) / HBM_BYTES_PER_S,
+                     11 * e * n_sites / F32_OPS_PER_S) * 1e3
+    rec.update(screened_steps=scr_steps, screened_s=scr_s,
+               screened_steps_per_s=scr_steps / scr_s,
+               screening_its_per_step=float(its.mean()),
+               screened_reads_per_step=scr_reads.n / max(scr_steps, 1),
+               pairwise_eval_ms=eval_ms, pairwise_eval_bound_ms=eval_bound)
+    log(f"  screened (xla): {scr_steps} steps in {scr_s:.2f} s ="
+        f" {scr_steps / scr_s:.3f} steps/s, screening iterations"
+        f" {scr_out.screening_iterations.tolist()} (mean"
+        f" {rec['screening_its_per_step']:.3f} per step), host reads"
+        f" {rec['screened_reads_per_step']:.1f} per step, max |A_induced|"
+        f" {a_ind:.4g}; one pairwise induced-potential evaluation: device"
+        f" {eval_ms:.3f} ms in {sum(c for _, c, _ in records)} records,"
+        f" bound {eval_bound:.3f} ms (operations, float32)")
+    assert not bool(scr_state.failed) and a_ind > 0
+    assert bool(torch.isfinite(scr_state.psi).all())
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--chunk", type=int, default=500,
                         help="steps per chunk and per snapshot (phases 6-7)")
-    parser.add_argument("--solve-time", type=float, default=19.8,
+    parser.add_argument("--solve-time", type=float, default=9.8,
                         help="simulated time of phases 6-7 (the default"
-                        " takes about 2,000 steps)")
-    parser.add_argument("--ramp-time", type=float, default=19.8,
+                        " takes about 1,000 steps)")
+    parser.add_argument("--ramp-time", type=float, default=9.8,
                         help="simulated time of phase 9's traced ramp (the"
                         " inputs ramp over its first half)")
     parser.add_argument("--ramp-chunk", type=int, default=500,
                         help="steps per chunk of phase 9")
-    parser.add_argument("--screen-time", type=float, default=9.8,
-                        help="simulated time of phase 10's screened solve")
+    parser.add_argument("--screen-time", type=float, default=4.8,
+                        help="simulated time of phase 10's screened solve"
+                        " (the default takes about 500 steps)")
     parser.add_argument("--screen-chunk", type=int, default=200,
                         help="steps per chunk of phase 10")
+    parser.add_argument("--ell-time", type=float, default=9.8,
+                        help="simulated time of phase 11's unstructured"
+                        " solves (the default takes about 1,000 steps)")
+    parser.add_argument("--ell-chunk", type=int, default=200,
+                        help="steps per chunk of phase 11")
+    parser.add_argument("--ell-screen-steps", type=int, default=50,
+                        help="steps of phase 11's screened run")
     args = parser.parse_args()
 
     import torch
@@ -845,6 +1312,7 @@ def main() -> int:
             assert rel < 1e-10, name
         assert int(ref["card"].step) == 40 and not bool(ref["card"].failed)
         check_small_dynamic_chunks(ttdgl)
+        check_small_ell_chunks(ttdgl)
 
     with Phase("bare chunk loop"):
         state = solver._initial_state()
@@ -1130,6 +1598,9 @@ def main() -> int:
             f" {induced_ms['exact']:.4f} ms, site-evaluated"
             f" {induced_ms['site']:.4f} ms (device, queued)")
 
+    with Phase("unstructured (ELL) main path at full width"):
+        ell = run_ell_main_path(ttdgl, args, inputs)
+
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"],
@@ -1140,11 +1611,16 @@ def main() -> int:
     # Launches on the driven paths: phase 7 (static inputs), phase 9 (the
     # traced ramp and the host path) and phase 10 (screening), each
     # counted from 0 just before its solve() and read just after.
+    # Phase 11's unstructured runs launch neither kernel (checked there).
+    ell_launches = dict(zip((fn.__name__ for fn in sk.KERNELS),
+                            ell["solve_launches"]))
     by_path = {"static solve()": launches, "traced ramp": ramp_launches,
-               "host path": host_launches, "screened": scr_launches}
+               "host path": host_launches, "screened": scr_launches,
+               "ELL solve()": ell_launches}
     slots_by_path = {"static solve()": solve_slots,
                      "traced ramp": ramp_slots, "host path": host_log.slots,
-                     "screened": scr_log.slots}
+                     "screened": scr_log.slots,
+                     "ELL solve()": ell["solve_steps"]}
 
     def record(name, source, replaces):
         fac = timings[name]["factored"]
@@ -1182,7 +1658,7 @@ def main() -> int:
     ]
     log(json.dumps({"breakdown": {"static": phase8, "traced ramp":
                                   ramp_breakdown, "screened": scr_breakdown},
-                    "induced_ms": induced_ms}))
+                    "induced_ms": induced_ms, "ell": ell}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

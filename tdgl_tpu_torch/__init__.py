@@ -2,10 +2,12 @@
 
 Time-dependent Ginzburg-Landau simulation of thin-film superconductors on
 an NVIDIA GPU. The JAX package ``tdgl_tpu`` is the reference; this package
-keeps its module paths and names. It covers the structured (hex-lattice)
-solver path, with screening and with static, traced or host-evaluated
-time-dependent inputs: build a :class:`Device`, mesh it with
-``make_mesh(structured=True)`` and call ``solve(device, options, ...)``,
+keeps its module paths and names. It covers both solver backends, the
+unstructured (ELL) one of the default Delaunay mesh and the structured
+(hex-lattice) one, with screening and with static, traced or
+host-evaluated time-dependent inputs: build a :class:`Device`, mesh it
+with ``make_mesh()`` (or ``make_mesh(structured=True)``) and call
+``solve(device, options, ...)``,
 which runs on the card (``torch_device="cuda"``, the default) or on the
 CPU (``torch_device="cpu"``), writes the standard HDF5 output file and
 returns a :class:`Solution`.

@@ -5,13 +5,16 @@ the device. They take plain numpy arrays, or anything ``np.asarray``
 accepts, so the same helpers also move the JAX package's arrays into this
 package: ``tdgl_tpu``'s ``StencilOperators``, ``HexMGData``, ``GridState``
 (or its ``export_grid_state_arrays`` dict), ``LinkPhases`` and
-``FactoredLinkPhases`` convert field by field, which is how the tests feed
-both packages the same state. The screening data converts too: either
+``FactoredLinkPhases`` convert field by field, and so do the unstructured
+backend's ``FVOperators``, ``AMGData`` and ``SolverState`` (or its
+``export_state_arrays`` dict), which is how the tests feed both packages
+the same state. The screening data converts too: either
 package's ``FFTScreeningData`` (the JAX package's split real/imaginary
 spectra become complex tensors) and the site-evaluation taps.
 
-Every array keeps its dtype, except that :func:`hexmg_to_torch` recasts
-the multigrid levels to the working dtype.
+Every array keeps its dtype, except that :func:`hexmg_to_torch` and
+:func:`amg_to_torch` recast the multigrid arrays to the working dtype and
+:func:`operators_to_torch` turns the ELL index tables into ``int64`` once.
 """
 
 from __future__ import annotations
@@ -21,11 +24,15 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
+from .fv.operators import FVOperators
 from .fv.stencil_operators import StencilOperators
-from .models.gtdgl_stencil import FactoredLinkPhases, LinkPhases
+from .models.gtdgl_stencil import (FactoredLinkPhases, LinkPhases,
+                                   gather_table)
+from .ops.amg import AMGTensors
 from .ops.fft_screening import FFTScreeningData
 from .ops.hexmg import HexMGData
 from .solver.grid_step import GridState
+from .solver.step import SolverState
 
 DeviceLike = Union[str, torch.device]
 
@@ -60,6 +67,35 @@ def hexmg_to_torch(mg, device: DeviceLike,
                if k in keep} for lev in mg.level_arrays]
     return HexMGData(levels, tuple(mg.offsets), tuple(mg.shapes),
                      p_omega=tuple(mg.p_omega))
+
+
+# The ELL tables' index fields (int32 on the host), gathered with int64.
+_FV_INDEX_FIELDS = ("edges", "nbr_site", "nbr_edge", "boundary_edge_indices",
+                    "nbl_rows", "nbl_cols", "fixed_sites")
+
+
+def operators_to_torch(op, device: DeviceLike) -> FVOperators:
+    """``FVOperators`` (either package's) -> tensors; the index tables
+    become ``int64`` here, once, so no gather converts them per call."""
+    return FVOperators(*(
+        to_tensor(np.asarray(getattr(op, f)).astype(np.int64), device)
+        if f in _FV_INDEX_FIELDS else to_tensor(getattr(op, f), device)
+        for f in FVOperators._fields))
+
+
+def amg_to_torch(amg, device: DeviceLike,
+                 dtype: Optional[torch.dtype] = None) -> AMGTensors:
+    """An ``AMGData`` (either package's) -> :class:`AMGTensors`, with the
+    restriction's member table built on the host; ``dtype`` casts
+    ``Ac_inv`` and ``inv_diag`` to the working dtype."""
+    ids = np.asarray(amg.cluster_ids).astype(np.int64)
+    return AMGTensors(
+        cluster_ids=to_tensor(ids, device),
+        Ac_inv=to_tensor(amg.Ac_inv, device, dtype),
+        inv_diag=to_tensor(amg.inv_diag, device, dtype),
+        # Every aggregate has a member, so the targets are 0..nc-1.
+        members=to_tensor(gather_table(ids)[1], device),
+    )
 
 
 def link_phases_to_torch(U, device: DeviceLike):
@@ -121,17 +157,48 @@ def grid_state_to_torch(state, device: DeviceLike,
                          " GridState for the fields it does not hold")
     fields = {dst: to_tensor(state[src], device)
               for src, dst in _EXPORT_TO_STATE.items()}
-    diag = np.asarray(state["diagnostics"], dtype=np.float64)
-    rd = template.time.dtype
+    fields.update(_diagnostic_scalars(state["diagnostics"],
+                                      template.time.dtype, device))
+    return template._replace(**fields)
+
+
+def solver_state_to_torch(state, device: DeviceLike,
+                          template: Optional[SolverState] = None
+                          ) -> SolverState:
+    """An ELL ``SolverState`` (either package's) -> tensors.
+
+    ``state`` may also be the mapping of ``export_state_arrays``; the
+    fields an export does not hold (``mu_prev``, ``mu_boundary``,
+    ``dA_dt``, the adaptive-dt window, ``end_time``) are then taken from
+    ``template``, and the scalars from its ``diagnostics``.
+    """
+    if not isinstance(state, Mapping):
+        return SolverState(*(to_tensor(getattr(state, f), device)
+                             for f in SolverState._fields))
+    if template is None:
+        raise ValueError("converting an exported state needs a template"
+                         " SolverState for the fields it does not hold")
+    fields = {dst: to_tensor(state[src], device)
+              for src, dst in _EXPORT_TO_STATE.items()
+              if dst not in ("psi_r", "psi_i")}
+    fields["psi"] = to_tensor(np.stack([np.asarray(state["psi_real"]),
+                                        np.asarray(state["psi_imag"])],
+                                       axis=-1), device)
+    return template._replace(**fields, **_diagnostic_scalars(
+        state["diagnostics"], template.time.dtype, device))
+
+
+def _diagnostic_scalars(diagnostics, rd, device):
+    """The state's 0-d fields from an exported ``diagnostics`` vector."""
+    diag = np.asarray(diagnostics, dtype=np.float64)
 
     def scalar(v, dtype):
         return torch.tensor(v, dtype=dtype, device=device)
 
-    fields.update(
+    return dict(
         time=scalar(diag[0], rd), prev_dt=scalar(diag[1], rd),
         tentative_dt=scalar(diag[2], rd),
         step=scalar(int(diag[3]), torch.int32),
         done=scalar(bool(diag[4]), torch.bool),
         failed=scalar(bool(diag[5]), torch.bool),
     )
-    return template._replace(**fields)

@@ -238,31 +238,28 @@ def edge_quantity_to_sites(sten, F_edge: torch.Tensor) -> torch.Tensor:
 
 
 class NeumannGather(NamedTuple):
-    """The Neumann scatter of a stencil as a padded gather table.
+    """A static scatter ``out[idx[j]] += v[j]`` as a padded gather table.
 
-    ``targets`` are the distinct boundary sites (flat grid indices);
-    ``table[t]`` lists, in increasing order, the positions ``j`` of the
-    ``nbl_*`` entries that land on ``targets[t]``, padded with ``2B`` (a
-    zero appended to the values). Summing a row left to right adds the
-    contributions in the order ``np.add.at`` does, with no atomics.
+    ``targets`` are the distinct entries of ``idx``; ``table[t]`` lists, in
+    increasing order, the positions ``j`` with ``idx[j] == targets[t]``,
+    padded with ``len(idx)`` (a zero appended to the values). Summing a row
+    left to right adds the contributions in the order ``np.add.at`` does,
+    with no atomics. The Neumann scatter of a stencil (``nbl_idx``) and of
+    the ELL tables (``nbl_rows``), and the AMG restriction
+    (``cluster_ids``), are such scatters.
     """
 
     targets: torch.Tensor  # (T,) int64
     table: torch.Tensor    # (T, M) int64
 
 
-# One gather table per stencil: id(nbl_idx) -> (weakref to it, table).
+# One gather table per index tensor: id(idx) -> (weakref to it, table).
 _NEUMANN_GATHERS: Dict[int, tuple] = {}
 
 
-def neumann_gather(sten) -> NeumannGather:
-    """The :class:`NeumannGather` of ``sten``, built on the host from its
-    static ``nbl_idx`` on first use and then reused."""
-    key = id(sten.nbl_idx)
-    ref, gather = _NEUMANN_GATHERS.get(key, (None, None))
-    if ref is not None and ref() is sten.nbl_idx:
-        return gather
-    idx = sten.nbl_idx.detach().cpu().numpy().astype(np.int64)
+def gather_table(idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(targets, table)`` of a :class:`NeumannGather`, on the host."""
+    idx = np.asarray(idx).astype(np.int64)
     order = np.argsort(idx, kind="stable")
     targets, counts = np.unique(idx, return_counts=True)
     width = int(counts.max()) if len(counts) else 0
@@ -271,14 +268,43 @@ def neumann_gather(sten) -> NeumannGather:
     for m in range(width):
         has = counts > m
         table[has, m] = order[starts[has] + m]
-    dev = sten.nbl_idx.device
+    return targets, table
+
+
+def index_gather(idx: torch.Tensor) -> NeumannGather:
+    """The :class:`NeumannGather` of the static index tensor ``idx``,
+    built on the host on first use and then reused while ``idx`` lives."""
+    key = id(idx)
+    ref, gather = _NEUMANN_GATHERS.get(key, (None, None))
+    if ref is not None and ref() is idx:
+        return gather
+    targets, table = gather_table(idx.detach().cpu().numpy())
+    dev = idx.device
     gather = NeumannGather(torch.from_numpy(targets).to(dev),
                            torch.from_numpy(table).to(dev))
-    _NEUMANN_GATHERS[key] = (weakref.ref(sten.nbl_idx,
+    _NEUMANN_GATHERS[key] = (weakref.ref(idx,
                                          lambda _: _NEUMANN_GATHERS.pop(key,
                                                                         None)),
                              gather)
     return gather
+
+
+def neumann_gather(sten) -> NeumannGather:
+    """The :class:`NeumannGather` of ``sten``'s static ``nbl_idx``."""
+    return index_gather(sten.nbl_idx)
+
+
+def ordered_scatter_sum(gather: NeumannGather, vals: torch.Tensor,
+                        size: int) -> torch.Tensor:
+    """``out = zeros(size); out[idx[j]] += vals[j]`` through ``gather``,
+    each target's terms added left to right (deterministic, the order of
+    ``np.add.at``)."""
+    rows = torch.cat([vals, vals.new_zeros(1)])[gather.table]
+    acc = vals.new_zeros(len(gather.targets))
+    for m in range(rows.shape[1]):
+        acc = acc + rows[:, m]
+    flat = torch.zeros(size, dtype=vals.dtype, device=vals.device)
+    return flat.index_copy(0, gather.targets, acc)
 
 
 def neumann_boundary_term(sten, mu_boundary: torch.Tensor) -> torch.Tensor:
@@ -293,14 +319,8 @@ def neumann_boundary_term(sten, mu_boundary: torch.Tensor) -> torch.Tensor:
     shape = sten.valid.shape
     vals = (sten.nbl_vals.to(mu_boundary.dtype)
             * mu_boundary[sten.nbl_col.long()])
-    flat = torch.zeros(shape[0] * shape[1], dtype=mu_boundary.dtype,
-                       device=mu_boundary.device)
-    gather = neumann_gather(sten)
-    rows = torch.cat([vals, vals.new_zeros(1)])[gather.table]
-    acc = vals.new_zeros(len(gather.targets))
-    for m in range(rows.shape[1]):
-        acc = acc + rows[:, m]
-    return flat.index_copy(0, gather.targets, acc).reshape(shape)
+    return ordered_scatter_sum(neumann_gather(sten), vals,
+                               shape[0] * shape[1]).reshape(shape)
 
 
 class PsiUpdateResult(NamedTuple):

@@ -8,8 +8,13 @@ constants as null space), warm-started from the previous step's ``mu``.
 ``alpha``, ``beta``, ``rz`` and the residual stay 0-d tensors on the
 device. The fixed-count solve (:func:`cg_solve_fixed`, and the fixed phase
 of :func:`cg_solve_topup`) never reads a value back to the host; the
-tolerance-stopped loops read their stopping test once per iteration, which
-is what a data-dependent loop costs in eager PyTorch.
+tolerance-stopped loops read their stopping test once per iteration (and
+once before the first), which is what a data-dependent loop costs in eager
+PyTorch.
+
+:func:`solve_mu_poisson_grid` solves on the padded grid of the structured
+backend, :func:`solve_mu_poisson` on the ELL tables of the unstructured
+one.
 """
 
 from __future__ import annotations
@@ -78,13 +83,15 @@ def _iteration(apply_A, M_inv, project, state, reproject=True):
 def _stopped_loop(apply_A, M_inv, project, state, tol_sq, k, maxiter):
     """Tolerance-stopped PCG iterations from ``state``, until
     ``||r||^2 <= tol_sq``, a breakdown, or ``maxiter`` total iterations."""
-    ok = True
     x, r, z, p, rz = state
-    while ok and k < maxiter and bool(torch.sum(r * r) > tol_sq):
+    go = torch.sum(r * r) > tol_sq
+    # One host read per test: the residual test and the breakdown flag
+    # are read together.
+    while k < maxiter and bool(go):
         x, r, z, p, rz, healthy = _iteration(apply_A, M_inv, project,
                                              (x, r, z, p, rz))
-        ok = bool(healthy)
         k += 1
+        go = torch.logical_and(healthy, torch.sum(r * r) > tol_sq)
     return x, r, k
 
 
@@ -232,6 +239,70 @@ def solve_mu_poisson_grid(
                               min=torch.finfo(rdtype).tiny),
             0.0,
         )
+    if fixed_iters is not None:
+        if topup:
+            return cg_solve_topup(
+                apply_A, b, mu_prev, fixed_iters, tol=tol, maxiter=maxiter,
+                precond_inv_diag=inv_diag, precond=precond,
+                project_fn=project,
+            )
+        return cg_solve_fixed(
+            apply_A, b, mu_prev, fixed_iters, precond_inv_diag=inv_diag,
+            precond=precond, project_fn=project,
+        )
+    return cg_solve(
+        apply_A, b, mu_prev, precond_inv_diag=inv_diag, tol=tol,
+        maxiter=maxiter, precond=precond, project_fn=project,
+    )
+
+
+def solve_mu_poisson(
+    op,
+    rhs: torch.Tensor,
+    mu_prev: torch.Tensor,
+    tol: float = 1e-7,
+    maxiter: int = 1000,
+    amg=None,
+    amg_omega: float = 0.6,
+    fixed_iters: Optional[int] = None,
+    topup: bool = False,
+) -> CGResult:
+    """Solve the scalar-potential Poisson equation ``L mu = rhs`` with
+    ``L = diag(1/a) S`` on the ELL tables (unstructured backend; port of
+    :func:`tdgl_tpu.ops.cg.solve_mu_poisson`).
+
+    Works on the symmetrized system ``(-S) mu = -diag(a) rhs`` with a
+    Jacobi preconditioner, or the two-level AMG V-cycle when ``amg`` (an
+    :class:`~tdgl_tpu_torch.ops.amg.AMGTensors`) is given, warm-started
+    from ``mu_prev``; the constant mode is deflated with the plain mean.
+    ``fixed_iters`` and ``topup`` select the solver as in
+    :func:`solve_mu_poisson_grid`.
+    """
+    from ..models.gtdgl import scalar_laplacian_sym
+
+    rdtype = rhs.dtype
+    areas = op.areas.to(rdtype)
+
+    def project(v):
+        return v - torch.mean(v)
+
+    def apply_A(x):
+        return -scalar_laplacian_sym(op, x)
+
+    b = -(areas * rhs)
+    precond = None
+    inv_diag = None
+    if amg is not None:
+        from .amg import make_amg_apply
+
+        apply_amg = make_amg_apply(amg_omega)
+
+        def precond(v):
+            return apply_amg(apply_A, amg, v)
+    else:
+        # Jacobi diagonal of -S: precomputed edge-weight row sums.
+        diag = op.w_sym_rowsum.to(rdtype)
+        inv_diag = 1.0 / torch.clamp(diag, min=torch.finfo(rdtype).tiny)
     if fixed_iters is not None:
         if topup:
             return cg_solve_topup(

@@ -30,7 +30,8 @@ import torch
 from ..models import gtdgl_stencil as gs
 from ..ops.cg import solve_mu_poisson_grid
 from ..ops.step_kernels import StencilOperands, StepOperands
-from .step import StepConfig, StepOutputs
+from .step import (StepConfig, StepOutputs, induced_potential_update,
+                   screening_error)
 
 
 class GridState(NamedTuple):
@@ -216,7 +217,6 @@ def make_grid_step_fn(cfg: StepConfig):
         if cfg.include_screening:
             weights, fft_data = screening
             tol = cfg.screening_tolerance
-            tiny = torch.finfo(rdtype).tiny
             # Denominator floor of the global criterion: anything below
             # 1e-2 |A_applied| max contributes negligibly to the links.
             app_scale = torch.max(torch.sqrt(
@@ -236,36 +236,9 @@ def make_grid_step_fn(cfg: StepConfig):
                 J_site = gs.edge_quantity_to_sites(sten, J_s_u + J_n_u)
                 Jw = J_site * aux["screen_w"]
                 A_new = induced_potential(sten, fft_data, aux, Jw)
-                dA = A_new - A_ind
-                if cfg.screening_anderson:
-                    # Depth-1 Anderson (secant) acceleration: `velocity`
-                    # carries the previous residual, `x_prev` the
-                    # previous iterate.
-                    if s == 0:
-                        A_ind_u = A_ind + cfg.screening_step_size * dA
-                    else:
-                        dr = dA - velocity
-                        denom = torch.clamp(torch.sum(dr * dr), min=tiny)
-                        theta = torch.clamp(torch.sum(dA * dr) / denom,
-                                            -10.0, 10.0)
-                        A_ind_u = ((1.0 - theta) * A_new
-                                   + theta * (x_prev + velocity))
-                    velocity_u, x_prev_u = dA, A_ind
-                else:
-                    velocity_u = ((1.0 - cfg.screening_step_drag) * velocity
-                                  + cfg.screening_step_size * dA)
-                    A_ind_u = A_ind + velocity_u
-                    x_prev_u = x_prev
-                dA_norm = torch.sqrt(torch.sum(dA * dA, dim=-1))
-                A_norm = torch.sqrt(torch.sum(A_ind_u * A_ind_u, dim=-1))
-                if cfg.screening_global_error_norm:
-                    denom = torch.maximum(
-                        torch.max(A_norm),
-                        torch.clamp(0.01 * app_scale, min=1e-20))
-                    err_u = torch.max(dA_norm) / denom
-                else:
-                    err_u = torch.max(dA_norm / torch.clamp(A_norm,
-                                                            min=1e-20))
+                A_ind_u, velocity_u, x_prev_u, dA = induced_potential_update(
+                    cfg, s, A_ind, A_new, velocity, x_prev)
+                err_u = screening_error(cfg, dA, A_ind_u, app_scale)
                 carry_u = (dt_u, A_ind_u, velocity_u, x_prev_u, pr_u, pi_u,
                            mu_u)
                 return carry_u, (sq_u, fail_i, cg_iters_u, cg_res_u, err_u)

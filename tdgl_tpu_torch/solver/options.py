@@ -248,21 +248,12 @@ class SolverOptions:
     # the per-step residual check fails the run if tolerance is missed).
     poisson_solver: str = "cg"
     poisson_preconditioner: str = "amg"   # "amg" (two-level) or "jacobi"
-    # Performance router for the unstructured (ELL, gather-based) backend.
-    # History: round 2 measured reproducible TPU kernel faults for large
-    # gather programs (~50k sites), which this fence originally guarded
-    # against. Round 5 re-measured on the then-current runtime
-    # (tools/ell_fault_probe.py, tools/unstructured_solve_probe.py): the
-    # fault is GONE — the full production ELL solve completes cleanly on
-    # TPU at 50k sites — but it runs gather-bound at 9.0 steps/s vs 32.4
-    # steps/s for the SAME workload on the host CPU (3.6x), because the
-    # TPU has no fast general scatter/gather and every CG iteration is a
-    # neighbor gather. So the fence remains as a measured performance
-    # router: unstructured meshes larger than this limit execute on the
-    # host CPU with a warning. Set to None to force on-accelerator
-    # execution (works, slow). Structured meshes
-    # (make_mesh(structured=True)) are unaffected — they are the fast
-    # TPU path at scale (~1000x at 50k: 8,863 steps/s).
+    # Accepted for compatibility with tdgl_tpu.SolverOptions and has no
+    # effect here. The JAX package routes unstructured (ELL) solves above
+    # this many sites to the host CPU, because a TPU has no fast general
+    # gather; this package keeps every tensor of every solve on the
+    # solver's torch_device (on the card a gather is an ordinary load),
+    # and moves no solve to another device.
     unstructured_tpu_site_limit: Optional[int] = 30_000
     amg_coarsening: Optional[int] = None  # aggregate size (None = auto)
     steps_per_chunk: Optional[int] = None

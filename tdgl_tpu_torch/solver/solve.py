@@ -27,8 +27,9 @@ def solve(
     the CPU).
 
     Args:
-        device: The meshed :class:`tdgl_tpu_torch.Device`
-            (``make_mesh(structured=True)``).
+        device: The meshed :class:`tdgl_tpu_torch.Device`: the default
+            Delaunay mesh (``make_mesh()``) runs the unstructured (ELL)
+            backend, ``make_mesh(structured=True)`` the stencil backend.
         options: Solver options.
         applied_vector_potential: Uniform field strength (float, in
             ``options.field_units``) or a Parameter/callable of position

@@ -1,13 +1,25 @@
 """TDGLSolver: problem assembly and execution, in PyTorch.
 
-Port of the structured branch of :mod:`tdgl_tpu.solver.solver`: the same
-constructor, nondimensionalisation (A in units of A0, currents via
+Port of :mod:`tdgl_tpu.solver.solver`: the same constructor,
+nondimensionalisation (A in units of A0, currents via
 ``J_scale = 4 (I/L)/K0``), terminal boundary conditions, option
-resolution, time-dependent inputs, screening, fast/robust chunk programs
-with chunk failover, initial state, and ``solve()`` with the Runner, the
-HDF5 output file and the :class:`~tdgl_tpu_torch.Solution`. Tensors live
-on ``torch_device``: the card (``"cuda"``) unless the caller asks for the
-CPU.
+resolution, time-dependent inputs, screening, initial state, and
+``solve()`` with the Runner, the HDF5 output file and the
+:class:`~tdgl_tpu_torch.Solution`. Tensors live on ``torch_device``: the
+card (``"cuda"``) unless the caller asks for the CPU.
+
+Two backends, chosen as in the JAX package:
+
+* **structured** (a mesh from ``make_mesh(structured=True)``): the padded
+  hex-grid stencils of :mod:`.grid_step`, the hand-written CUDA step
+  kernels, the deep multigrid, and fast/robust chunk programs with chunk
+  failover;
+* **unstructured (ELL)** (the default Delaunay mesh, or
+  ``solver_backend="ell"``): the gather tables of
+  :mod:`tdgl_tpu_torch.fv.operators`, the step of :mod:`.step`, the
+  two-level AMG and the pairwise screening sum; one (robust) program, no
+  failover. Unlike the JAX package, no solve is moved to another device
+  when it is large (``unstructured_tpu_site_limit`` has no effect).
 
 Time-dependent inputs run on one of two paths, as in the JAX package:
 
@@ -18,8 +30,8 @@ Time-dependent inputs run on one of two paths, as in the JAX package:
   (chunk size 1, :meth:`TDGLSolver._host_update`).
 
 What this package does not run yet raises ``NotImplementedError`` naming
-its ROADMAP item (Queue 1): seed solutions and resume, unstructured
-meshes, and the live monitor.
+its ROADMAP item (Queue 1): seed solutions and resume, and the live
+monitor.
 """
 
 from __future__ import annotations
@@ -36,7 +48,9 @@ import torch
 
 from .. import convert
 from ..device.device import Device, TerminalInfo
+from ..fv.operators import build_operators
 from ..fv.stencil_operators import build_stencil_operators
+from ..ops.amg import build_amg
 from ..ops.hexmg import build_hexmg
 from ..parameter import Parameter
 from ..sources.constant import ConstantField
@@ -44,7 +58,7 @@ from ..utils.units import ureg
 from .grid_step import GridState, make_grid_chunk_fn
 from .options import SolverOptions, SolverOptionsError
 from .runner import DataHandler, Runner
-from .step import StepConfig
+from .step import SolverState, StepConfig, make_chunk_fn
 
 logger = logging.getLogger("solver")
 
@@ -124,12 +138,16 @@ def validate_terminal_currents(
 
 
 class TDGLSolver:
-    """Solves a TDGL model for a given device on a structured mesh.
+    """Solves a TDGL model for a given device.
 
     Args:
-        device: The meshed :class:`tdgl_tpu_torch.Device`
-            (``make_mesh(structured=True)``).
+        device: The meshed :class:`tdgl_tpu_torch.Device`: a structured
+            mesh (``make_mesh(structured=True)``) runs the stencil backend
+            unless ``options.solver_backend == "ell"``; an unstructured
+            one (the default) runs the ELL backend.
         options: :class:`tdgl_tpu_torch.SolverOptions`.
+            ``unstructured_tpu_site_limit`` is accepted and has no effect:
+            every solve keeps its tensors on ``torch_device``.
         applied_vector_potential: A float (uniform field strength in
             ``field_units``), or a Parameter/callable of ``(x, y, z)`` (and
             keyword ``t`` if time-dependent) returning the vector potential
@@ -175,9 +193,22 @@ class TDGLSolver:
             )
         mesh = device.mesh
         self.mesh = mesh
-        if mesh.grid is None or options.solver_backend == "ell":
-            raise _not_ported("The unstructured (ELL) backend",
-                              "unstructured backend")
+        # --- backend selection ---------------------------------------------
+        if options.solver_backend == "stencil" and mesh.grid is None:
+            raise ValueError(
+                "solver_backend='stencil' requires a structured mesh;"
+                " generate one with device.make_mesh(structured=True)."
+            )
+        self.structured = (
+            mesh.grid is not None and options.solver_backend != "ell"
+        )
+        if options.poisson_solver == "mg" and not self.structured:
+            raise SolverOptionsError(
+                "poisson_solver='mg' requires the structured (stencil)"
+                " backend; generate a structured mesh with"
+                " device.make_mesh(structured=True) or use"
+                " poisson_solver='cg'."
+            )
         self._reject_unported_options(options)
         self.rdtype = np.float32 if options.dtype == "float32" else np.float64
         self.cdtype = (np.complex64 if options.dtype == "float32"
@@ -291,22 +322,34 @@ class TDGLSolver:
         terminal_psi = options.terminal_psi
         fixed = (normal_boundary_index if terminal_psi is not None
                  else np.array([], dtype=np.int32))
-        logger.info("Constructing stencil operators.")
-        host_sten, self.maps = build_stencil_operators(
-            mesh, fixed_sites=fixed, dtype=self.rdtype
-        )
-        self.host_sten = host_sten
-        self.sten = convert.stencil_to_torch(host_sten, self.torch_device)
-        logger.info(
-            "Stencil backend: padded grid %s (%.0f%% fill).",
-            self.maps.shape,
-            100.0 * self.maps.n_sites
-            / (self.maps.shape[0] * self.maps.shape[1]),
-        )
+        self.host_op = self.op = None
+        self.host_sten = self.sten = self.maps = None
+        if self.structured:
+            logger.info("Constructing stencil operators.")
+            host_sten, self.maps = build_stencil_operators(
+                mesh, fixed_sites=fixed, dtype=self.rdtype
+            )
+            self.host_sten = host_sten
+            self.sten = convert.stencil_to_torch(host_sten,
+                                                 self.torch_device)
+            logger.info(
+                "Stencil backend: padded grid %s (%.0f%% fill).",
+                self.maps.shape,
+                100.0 * self.maps.n_sites
+                / (self.maps.shape[0] * self.maps.shape[1]),
+            )
+        else:
+            logger.info("Constructing finite volume operators.")
+            self.host_op = build_operators(mesh, fixed_sites=fixed,
+                                           dtype=self.rdtype)
+            self.op = convert.operators_to_torch(self.host_op,
+                                                 self.torch_device)
 
         # --- mu-Poisson preconditioner ---------------------------------------
         self._use_amg = options.poisson_preconditioner == "amg"
-        if self._use_amg:
+        if not self._use_amg:
+            self.host_amg = self.amg = None
+        elif self.structured:
             self.host_amg = build_hexmg(host_sten, self.maps, mesh)
             self.amg = convert.hexmg_to_torch(self.host_amg,
                                               self.torch_device,
@@ -316,7 +359,18 @@ class TDGLSolver:
                 len(self.amg.shapes), self.amg.shapes,
             )
         else:
-            self.host_amg = self.amg = None
+            coarsening = options.amg_coarsening or max(
+                16, len(mesh.sites) // 1200)
+            self.host_amg = build_amg(self.host_op, coarsening=coarsening,
+                                      dtype=self.rdtype)
+            self.amg = convert.amg_to_torch(self.host_amg,
+                                            self.torch_device,
+                                            self.torch_dtype)
+            logger.info(
+                "Built two-level AMG preconditioner: %d aggregates"
+                " (coarsening %d).", self.host_amg.Ac_inv.shape[0],
+                coarsening,
+            )
 
         # --- screening -------------------------------------------------------
         self._setup_screening(options, xi, K0, A0, length_units)
@@ -383,6 +437,13 @@ class TDGLSolver:
             # current, so CG must converge well below the screening
             # tolerance.
             poisson_tol = min(poisson_tol, 1e-2 * screening_tol)
+        # Probes are flat padded-grid indices on the stencil backend, site
+        # indices on the ELL backend.
+        probe_ix = None
+        if self.probe_points is not None:
+            probe_ix = tuple(
+                int(self.maps.site_flat[p]) if self.structured else int(p)
+                for p in self.probe_points)
         self.cfg = StepConfig(
             gamma=float(self.gamma),
             u=float(self.u),
@@ -406,9 +467,11 @@ class TDGLSolver:
             screening_cg_iters=(
                 int(options.screening_cg_iterations)
                 if options.screening_cg_iterations is not None
-                # f32: 5 suffices for the f32-floored inner tolerance; f64
-                # runs chase ~1e-8 inner residuals and keep a deeper count.
+                # Structured f32: 5 suffices for the f32-floored inner
+                # tolerance; f64 runs chase ~1e-8 inner residuals and keep
+                # a deeper count. The ELL backend keeps 32.
                 else (5 if options.dtype == "float32" else 8)
+                if self.structured else 32
             ),
             screening_tolerance=screening_tol,
             screening_step_size=float(options.screening_step_size),
@@ -419,13 +482,10 @@ class TDGLSolver:
             poisson_fixed_iters=self._poisson_fixed_iters(options),
             poisson_predictor=(options.poisson_warm_start == "extrapolate"),
             # A single 0.8-damped Jacobi sweep per smoothing pass of the
-            # deep SA hierarchy (the JAX package's structured setting).
-            amg_omega=0.8,
-            # Probes are flat padded-grid indices on the stencil backend.
-            probe_ix=(
-                tuple(int(self.maps.site_flat[p]) for p in self.probe_points)
-                if self.probe_points is not None else None
-            ),
+            # deep SA hierarchy (structured); the ELL two-level AMG's
+            # validated 0.6.
+            amg_omega=(0.8 if self.structured else 0.6),
+            probe_ix=probe_ix,
             A_fn=A_fn,
             eps_fn=eps_fn,
             mu_boundary_fn=mu_boundary_fn,
@@ -446,8 +506,19 @@ class TDGLSolver:
                     if options.save_every % d == 0:
                         divisor = d
                 self.chunk_size = divisor
-        self._raw_chunk_fn = make_grid_chunk_fn(self.cfg, self.chunk_size)
         self._failover_count = 0
+        if not self.structured:
+            if options.chunk_failover == "on":
+                raise SolverOptionsError(
+                    "chunk_failover='on' requires the structured (stencil)"
+                    " backend; use 'auto' to enable it opportunistically."
+                )
+            self._raw_chunk_fn = make_chunk_fn(self.cfg, self.chunk_size)
+            self.chunk_fn = lambda state: self._raw_chunk_fn(
+                self.op, self._screening, self.amg, state
+            )
+            return
+        self._raw_chunk_fn = make_grid_chunk_fn(self.cfg, self.chunk_size)
         if options.chunk_failover != "off":
             # The fast program: no retry/top-up loops, health gates instead
             # (StepConfig.fast_chunk). A chunk with a tripped gate is
@@ -495,13 +566,20 @@ class TDGLSolver:
 
     def _setup_screening(self, options, xi, K0, A0, length_units) -> None:
         """The screening weights and kernel: ``"auto"`` resolves to
-        ``"fft"`` (the exact lattice convolution; this package has no
-        TPU DFT-matmul form), ``"xla"`` is the pairwise sum. Sets
-        ``self._screening`` (``(weights, fft_data)`` tensors, or None),
-        ``self._screening_kernel`` and ``self._site_taps``."""
+        ``"fft"`` on the structured backend (the exact lattice
+        convolution; this package has no TPU DFT-matmul form) and to
+        ``"xla"`` (the pairwise sum) on the ELL backend, where ``"fft"``
+        raises. Sets ``self._screening`` (structured: ``(weights,
+        fft_data)`` tensors; ELL: the per-site weights; None without
+        screening), ``self._screening_kernel`` and ``self._site_taps``."""
         kernel = options.screening_kernel
         if kernel == "auto":
-            kernel = "fft"
+            kernel = "fft" if self.structured else "xla"
+        if kernel == "fft" and not self.structured:
+            raise ValueError(
+                "screening_kernel='fft' requires a structured mesh"
+                " (Device.make_mesh(structured=True))."
+            )
         self._screening_kernel = kernel
         self._site_taps = None
         self._screening = None
@@ -517,6 +595,10 @@ class TDGLSolver:
             (ureg("mu_0") / (4 * np.pi) * K0 / A0).to(1 / length_units)
         ).magnitude
         weights = (A_scale_scr * xi) * np.asarray(self.mesh.areas)
+        if not self.structured:
+            self._screening = convert.to_tensor(
+                weights.astype(self.rdtype), self.torch_device)
+            return
         weights = self.maps.site_to_grid(weights.astype(self.rdtype))
         fft_data = None
         if kernel == "fft":
@@ -600,13 +682,17 @@ class TDGLSolver:
                 return out
 
         if self._jittable_A:
-            # Padded grid edge centers (invalid entries sit at the mesh
-            # centroid, so user functions stay finite there).
-            xe = (xi * np.asarray(self.host_sten.ec_x)).ravel()
-            ye = (xi * np.asarray(self.host_sten.ec_y)).ravel()
+            if self.structured:
+                # Padded grid edge centers (invalid entries sit at the mesh
+                # centroid, so user functions stay finite there).
+                xe = (xi * np.asarray(self.host_sten.ec_x)).ravel()
+                ye = (xi * np.asarray(self.host_sten.ec_y)).ravel()
+                out_shape = (3,) + self.maps.shape + (2,)
+            else:
+                xe, ye = self.edge_centers[:, 0], self.edge_centers[:, 1]
+                out_shape = (len(xe), 2)
             ze = self.device.layer.z0 * np.ones_like(xe)
             coords = [convert.to_tensor(c, dev) for c in (xe, ye, ze)]
-            out_shape = (3,) + self.maps.shape + (2,)
 
             def A_fn(t, _p=self.applied_vector_potential):
                 A = _p.evaluate_traced(*coords, t=t)
@@ -614,10 +700,15 @@ class TDGLSolver:
                 return A.reshape(out_shape)
 
         if self._jittable_eps:
-            xs = [convert.to_tensor(
-                (xi * np.asarray(c)).ravel(), dev)
-                for c in (self.host_sten.site_x, self.host_sten.site_y)]
-            eps_shape = self.maps.shape
+            if self.structured:
+                xs = [convert.to_tensor((xi * np.asarray(c)).ravel(), dev)
+                      for c in (self.host_sten.site_x,
+                                self.host_sten.site_y)]
+                eps_shape = self.maps.shape
+            else:
+                xs = [convert.to_tensor(self.sites[:, k], dev)
+                      for k in (0, 1)]
+                eps_shape = (len(self.sites),)
 
             def eps_fn(t, _p=self.disorder_epsilon):
                 return torch.as_tensor(
@@ -645,11 +736,13 @@ class TDGLSolver:
     def _poisson_fixed_iters(self, options: SolverOptions) -> Optional[int]:
         """Resolve ``poisson_fixed_iterations`` (None = auto, 0 = forced
         tolerance-stopped): auto is a fixed 2-iteration MG-CG solve (plus
-        the robust program's top-up) on the float32 deep-multigrid path."""
+        the robust program's top-up) on the float32 structured
+        deep-multigrid path, else tolerance-stopped."""
         pf = options.poisson_fixed_iterations
         if pf is not None:
             return int(pf) if pf > 0 else None
-        if (self._use_amg and options.dtype == "float32"
+        if (self.structured and self._use_amg
+                and options.dtype == "float32"
                 and options.poisson_solver == "cg"):
             return 2
         return None
@@ -685,24 +778,27 @@ class TDGLSolver:
     def _resolve_factor_link_phases(self, options: SolverOptions) -> None:
         """Resolve ``SolverOptions.factor_link_phases`` (None = auto).
 
-        Auto enables the factored link phases on float32 static-A
-        unscreened solves when the applied potential passes a float64
-        separability check (max ``|a - f - g|`` <= 1e-9 relative over the
-        full padded grid); explicit True raises on an ineligible solve or
-        a non-separable potential. Sets ``cfg.factor_link_phases`` and
-        caches the smooth full-grid applied potential for the state fill.
+        Auto enables the factored link phases on float32 structured
+        static-A unscreened solves when the applied potential passes a
+        float64 separability check (max ``|a - f - g|`` <= 1e-9 relative
+        over the full padded grid); explicit True raises on an ineligible
+        solve or a non-separable potential. Sets ``cfg.factor_link_phases``
+        and caches the smooth full-grid applied potential for the state
+        fill.
         """
         self._full_A_grid = None
         opt = options.factor_link_phases
-        eligible = (not self.dynamic_vector_potential
+        eligible = (self.structured
+                    and not self.dynamic_vector_potential
                     and not options.include_screening)
         if opt is False or (opt is None and (
                 not eligible or options.dtype != "float32")):
             return
         if opt and not eligible:
             raise SolverOptionsError(
-                "factor_link_phases requires a static (time-independent)"
-                " applied vector potential and screening off."
+                "factor_link_phases requires a structured mesh, a static"
+                " (time-independent) applied vector potential and"
+                " screening off."
             )
         A64 = self._full_grid_A64()
         dirs = np.asarray(self.host_sten.edge_dirs, np.float64)
@@ -782,10 +878,12 @@ class TDGLSolver:
                   sten.nbl_vals * mu_boundary[sten.nbl_col])
         return flat.reshape(self.maps.shape)
 
-    def _host_update(self, state: GridState) -> GridState:
+    def _host_update(self, state):
         """Evaluate the non-traceable time-dependent inputs on the host at
         the state's time (chunk size 1; the Runner calls this before every
-        chunk)."""
+        chunk). The structured state holds them on the padded grid and
+        the Neumann term pre-scattered; the ELL state holds mesh vectors
+        and the boundary values themselves (its step gathers the term)."""
         time = float(state.time)
         updates = {}
         if self.dynamic_vector_potential and not self._jittable_A:
@@ -794,17 +892,27 @@ class TDGLSolver:
             dirs = np.asarray(self.mesh.edge_mesh.directions,
                               dtype=self.rdtype)
             ndirs = dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
-            prev = self.maps.grid_to_edge(state.A_applied.cpu().numpy())
+            prev = state.A_applied.cpu().numpy()
+            if self.structured:
+                prev = self.maps.grid_to_edge(prev)
             dA_dt = np.einsum("ij,ij->i", (A_new - prev) / prev_dt, ndirs)
-            updates["A_applied"] = self.maps.edge_to_grid(A_new)
-            updates["dA_dt"] = self.maps.edge_to_grid(
-                dA_dt.astype(self.rdtype))
+            updates["A_applied"] = A_new
+            updates["dA_dt"] = dA_dt.astype(self.rdtype)
         if self.dynamic_epsilon and not self._jittable_eps:
-            updates["epsilon"] = self.maps.site_to_grid(
-                self._eval_epsilon(time))
+            updates["epsilon"] = self._eval_epsilon(time)
         if self.dynamic_currents and not self._jittable_currents:
-            updates["neumann_term"] = self._host_neumann_term(
-                self._mu_boundary(time))
+            mu_boundary = self._mu_boundary(time)
+            if self.structured:
+                updates["neumann_term"] = self._host_neumann_term(
+                    mu_boundary)
+            else:
+                updates["mu_boundary"] = mu_boundary
+        if self.structured:
+            to_grid = dict(A_applied=self.maps.edge_to_grid,
+                           dA_dt=self.maps.edge_to_grid,
+                           epsilon=self.maps.site_to_grid)
+            updates = {k: to_grid[k](v) if k in to_grid else v
+                       for k, v in updates.items()}
         if updates:
             state = state._replace(**{
                 k: convert.to_tensor(v, self.torch_device)
@@ -812,9 +920,12 @@ class TDGLSolver:
         return state
 
     # -- state assembly -------------------------------------------------------
-    def _initial_state(self) -> GridState:
-        """The grid state at t = 0 on ``torch_device`` (and its step-0
-        export dict, ``self._initial_export``)."""
+    def _initial_state(self):
+        """The state at t = 0 on ``torch_device`` (a ``GridState``, or a
+        ``SolverState`` on the ELL backend), and its step-0 export dict
+        (``self._initial_export``)."""
+        if not self.structured:
+            return self._initial_ell_state()
         options = self.options
         rd = self.rdtype
         maps = self.maps
@@ -880,13 +991,72 @@ class TDGLSolver:
             failed=scalar(False, torch.bool),
         )
 
+    def _initial_ell_state(self) -> SolverState:
+        """:meth:`_initial_state` on the ELL backend."""
+        options = self.options
+        rd = self.rdtype
+        n_edges = self.num_edges
+        psi = self.psi_init
+        zeros_e = np.zeros(n_edges, dtype=rd)
+        A_induced = np.zeros((n_edges, 2), dtype=rd)
+        A_applied = self.current_A_applied.astype(rd)
+        self._initial_export = dict(
+            psi_real=np.real(psi).astype(rd),
+            psi_imag=np.imag(psi).astype(rd),
+            mu=np.asarray(self.mu_init, rd),
+            supercurrent=zeros_e,
+            normal_current=zeros_e,
+            induced_vector_potential=A_induced,
+            applied_vector_potential=A_applied,
+            epsilon=np.asarray(self.epsilon, rd),
+            diagnostics=np.array(
+                [0.0, options.dt_init, options.dt_init, 0.0, 0.0, 0.0],
+                np.float32,
+            ),
+        )
+        dev = self.torch_device
+        td = self.torch_dtype
+
+        def t(a):
+            return convert.to_tensor(a, dev)
+
+        def scalar(v, dtype=td):
+            return torch.tensor(v, dtype=dtype, device=dev)
+
+        psi_pair = np.stack([np.real(psi), np.imag(psi)], axis=-1).astype(rd)
+        return SolverState(
+            psi=t(psi_pair),
+            mu=t(np.asarray(self.mu_init, rd)),
+            mu_prev=t(np.asarray(self.mu_init, rd)),
+            supercurrent=t(zeros_e),
+            normal_current=t(zeros_e),
+            A_induced=t(A_induced),
+            A_applied=t(A_applied),
+            epsilon=t(np.asarray(self.epsilon, rd)),
+            mu_boundary=t(self._mu_boundary(0.0)),
+            dA_dt=t(zeros_e),
+            tentative_dt=scalar(options.dt_init),
+            prev_dt=scalar(options.dt_init),
+            time=scalar(0.0),
+            step=scalar(0, torch.int32),
+            dpsi_window=torch.zeros(options.adaptive_window, dtype=td,
+                                    device=dev),
+            end_time=scalar(options.solve_time),
+            done=scalar(False, torch.bool),
+            failed=scalar(False, torch.bool),
+        )
+
     def _state_to_arrays(self, exported) -> Dict[str, np.ndarray]:
-        """Convert an exported-state dict (``export_grid_state_arrays``,
-        tensors or numpy) into per-site / per-edge mesh vectors."""
+        """Convert an exported-state dict (``export_grid_state_arrays`` or
+        ``export_state_arrays``, tensors or numpy) into per-site /
+        per-edge mesh vectors."""
         ex = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                   else np.asarray(v)) for k, v in exported.items()}
-        g2s = self.maps.grid_to_site
-        g2e = self.maps.grid_to_edge
+        if self.structured:
+            g2s = self.maps.grid_to_site
+            g2e = self.maps.grid_to_edge
+        else:
+            g2s = g2e = np.asarray
         data = dict(
             psi=g2s(ex["psi_real"]) + 1j * g2s(ex["psi_imag"]),
             mu=g2s(ex["mu"]),
@@ -974,7 +1144,7 @@ class TDGLSolver:
                 host_update_fn=(self._host_update if self.host_dynamic
                                 else None),
                 checkpoint_meta={
-                    "backend": "grid",
+                    "backend": "grid" if self.structured else "ell",
                     "mesh_fingerprint": self._mesh_fingerprint(),
                 },
                 logger=logger,

@@ -1,15 +1,27 @@
-"""Step configuration and per-step outputs of the TDGL time step.
+"""The TDGL time step of the unstructured (ELL) backend, and the step
+configuration and per-step outputs both backends share.
 
-The two records of :mod:`tdgl_tpu.solver.step` that the grid backend
-shares (``StepConfig``, ``StepOutputs``), copied verbatim; the fields keep
-the JAX package's names and comments so a reader can find each
-counterpart. The traced inputs (``A_fn``, ``eps_fn``, ``mu_boundary_fn``)
-map a 0-d time tensor to tensors on the solve's device. Fields of TPU-only
-options have no effect in this package: ``use_pallas_step``,
-``screening_fft_mxu``, ``screening_dft_bf16``, ``screening_eval_fn``,
-``poisson_use_mg``, ``poisson_sstep``, ``fold_link_weights``,
-``link_bf16`` and ``scan_unroll`` (the solver raises for the options that
-would set them; see :mod:`.solver`).
+Port of :mod:`tdgl_tpu.solver.step`. ``StepConfig`` and ``StepOutputs`` are
+copied verbatim; the fields keep the JAX package's names and comments so a
+reader can find each counterpart. The traced inputs (``A_fn``, ``eps_fn``,
+``mu_boundary_fn``) map a 0-d time tensor to tensors on the solve's device.
+Fields of TPU-only options have no effect in this package:
+``use_pallas_step``, ``screening_fft_mxu``, ``screening_dft_bf16``,
+``screening_eval_fn``, ``poisson_use_mg``, ``poisson_sstep``,
+``fold_link_weights``, ``link_bf16`` and ``scan_unroll`` (the solver raises
+for the options that would set them; see :mod:`.solver`).
+
+The ELL step (:func:`make_step_fn`, :func:`make_chunk_fn`) follows the JAX
+step statement for statement on the tables of
+:mod:`tdgl_tpu_torch.models.gtdgl`: the implicit-Euler psi update with
+dt-shrinking discriminant retries, the supercurrent, the CG mu solve
+(tolerance-stopped by default), the normal current, the optional screening
+fixed point (Anderson(1) or Polyak, global or per-edge error), and the
+adaptive dt. The JAX package's ``while_loop``s become Python loops that
+read their condition from the device: per step, one read of ``done``, one
+of the psi update's ``ok`` (adaptive dt) per attempt, one per CG stopping
+test, and, with screening, one of the fixed-point error per iteration. The
+ELL backend has no fast chunk program (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -18,6 +30,34 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..models import gtdgl
+from ..ops.cg import solve_mu_poisson
+from ..ops.screening import induced_vector_potential
+
+
+class SolverState(NamedTuple):
+    """The full device-resident solver state of the ELL backend."""
+
+    psi: torch.Tensor              # (N, 2) re/im pair
+    mu: torch.Tensor               # (N,)
+    mu_prev: torch.Tensor          # (N,) — previous step's mu (predictor)
+    supercurrent: torch.Tensor     # (E,)
+    normal_current: torch.Tensor   # (E,)
+    A_induced: torch.Tensor        # (E, 2)
+    A_applied: torch.Tensor        # (E, 2) — current applied potential
+    epsilon: torch.Tensor          # (N,)
+    mu_boundary: torch.Tensor      # (B,) current-density BC per boundary
+                                   # edge
+    dA_dt: torch.Tensor            # (E,) edge-projected dA/dt
+    tentative_dt: torch.Tensor     # 0-d
+    prev_dt: torch.Tensor          # 0-d — dt used in the previous step
+    time: torch.Tensor             # 0-d
+    step: torch.Tensor             # 0-d int32 — step index in the stage
+    dpsi_window: torch.Tensor      # (W,) ring buffer of max |d|psi|^2|
+    end_time: torch.Tensor         # 0-d — stage end time
+    done: torch.Tensor             # 0-d bool
+    failed: torch.Tensor           # 0-d bool (retry/screening failure)
 
 
 class StepOutputs(NamedTuple):
@@ -177,3 +217,316 @@ class StepConfig:
     # with spatial sharding (a pallas_call cannot be auto-partitioned), so
     # shard_solver_spatially rebuilds the chunk without it.
     use_pallas_step: bool = False
+
+
+def export_diagnostics(state: SolverState) -> torch.Tensor:
+    """``[time, prev_dt, tentative_dt, step, done, failed]`` as float32."""
+    f = torch.float32
+    return torch.stack([
+        state.time.to(f),
+        state.prev_dt.to(f),
+        state.tentative_dt.to(f),
+        state.step.to(f),
+        state.done.to(f),
+        state.failed.to(f),
+    ])
+
+
+def export_state_arrays(state: SolverState):
+    """The full state as real-typed tensors (psi split into re/im)."""
+    return dict(
+        psi_real=state.psi[..., 0],
+        psi_imag=state.psi[..., 1],
+        mu=state.mu,
+        supercurrent=state.supercurrent,
+        normal_current=state.normal_current,
+        induced_vector_potential=state.A_induced,
+        applied_vector_potential=state.A_applied,
+        epsilon=state.epsilon,
+        diagnostics=export_diagnostics(state),
+    )
+
+
+def induced_potential_update(cfg: StepConfig, s: int, A_ind, A_new,
+                             velocity, x_prev):
+    """One update of the screening fixed point (iteration ``s``) from the
+    iterate ``A_ind`` and its image ``A_new``: depth-1 Anderson (secant)
+    acceleration, where ``velocity`` carries the previous residual and
+    ``x_prev`` the previous iterate, or the Polyak heavy ball. Shared by
+    both backends (any layout with the x/y pair last). Returns
+    ``(A_ind, velocity, x_prev, dA)`` after the update."""
+    dA = A_new - A_ind
+    if not cfg.screening_anderson:
+        velocity = ((1.0 - cfg.screening_step_drag) * velocity
+                    + cfg.screening_step_size * dA)
+        return A_ind + velocity, velocity, x_prev, dA
+    if s == 0:
+        A_ind_u = A_ind + cfg.screening_step_size * dA
+    else:
+        dr = dA - velocity
+        denom = torch.clamp(torch.sum(dr * dr),
+                            min=torch.finfo(dA.dtype).tiny)
+        theta = torch.clamp(torch.sum(dA * dr) / denom, -10.0, 10.0)
+        A_ind_u = (1.0 - theta) * A_new + theta * (x_prev + velocity)
+    return A_ind_u, dA, A_ind, dA
+
+
+def screening_error(cfg: StepConfig, dA, A_ind, app_scale):
+    """The fixed point's error after an update: ``max |dA| / max |A|``
+    with the denominator floored at 1e-2 of the applied potential's
+    largest ``|A|`` (the global norm), or the reference's largest per-edge
+    ratio ``|dA_e| / |A_e|``."""
+    dA_norm = torch.sqrt(torch.sum(dA * dA, dim=-1))
+    A_norm = torch.sqrt(torch.sum(A_ind * A_ind, dim=-1))
+    if cfg.screening_global_error_norm:
+        denom = torch.maximum(torch.max(A_norm),
+                              torch.clamp(0.01 * app_scale, min=1e-20))
+        return torch.max(dA_norm) / denom
+    return torch.max(dA_norm / torch.clamp(A_norm, min=1e-20))
+
+
+def make_step_fn(cfg: StepConfig):
+    """Build the ELL step ``(op, screening_weights, amg, state, aux) ->
+    (state, outputs)``.
+
+    ``op`` holds the FV tables on the device, ``screening_weights`` the
+    per-site screening prefactor ``A_scale * xi * area`` (None without
+    screening), ``amg`` an :class:`~tdgl_tpu_torch.ops.amg.AMGTensors` (or
+    None), and ``aux`` the chunk's device constants (see
+    :func:`make_chunk_fn`).
+    """
+
+    def euler_with_retries(op, U, psi, old_sq, mu, epsilon, dt0):
+        """Euler update with dt-shrinking retries: one host read of ``ok``
+        per attempt (the JAX program's ``lax.while_loop``)."""
+        res = gtdgl.implicit_euler_psi(op, U, psi, old_sq, mu, epsilon,
+                                       cfg.gamma, cfg.u, dt0)
+        if not cfg.adaptive:
+            return res.psi, res.abs_sq_psi, dt0, torch.logical_not(res.ok)
+        dt, tries, ok = dt0, 0, res.ok
+        while tries <= cfg.max_solve_retries and not bool(ok):
+            dt = dt * cfg.adaptive_time_step_multiplier
+            res = gtdgl.implicit_euler_psi(op, U, psi, old_sq, mu, epsilon,
+                                           cfg.gamma, cfg.u, dt)
+            ok = res.ok
+            tries += 1
+        return res.psi, res.abs_sq_psi, dt, torch.logical_not(ok)
+
+    def observables(op, amg, U, psi, dA_dt, mu_boundary, mu_guess,
+                    fixed_iters=None):
+        """Supercurrent, mu (CG) and normal current, and the CG iteration
+        count and residual. ``fixed_iters`` (inside the screening fixed
+        point) runs a fixed count with no top-up: a smooth map."""
+        J_s = gtdgl.supercurrent_on_edges(op, U, psi)
+        rhs = gtdgl.poisson_rhs(op, J_s, dA_dt, mu_boundary)
+        topup = fixed_iters is None
+        if fixed_iters is None:
+            fixed_iters = cfg.poisson_fixed_iters
+        cg = solve_mu_poisson(
+            op, rhs, mu_guess,
+            tol=cfg.poisson_tolerance, maxiter=cfg.poisson_max_iterations,
+            amg=(amg if cfg.use_amg else None), amg_omega=cfg.amg_omega,
+            fixed_iters=fixed_iters, topup=topup,
+        )
+        J_n = -gtdgl.gradient_on_edges(op, cg.x) - dA_dt
+        return J_s, cg.x, J_n, cg.iterations, cg.residual_norm
+
+    def residual_allowed(rdtype):
+        # Fixed-iteration CG has no internal stopping test; 2x the CG
+        # precision floor keeps the gate for gross failure.
+        return max(cfg.poisson_tolerance, 100.0 * torch.finfo(rdtype).eps)
+
+    def step(op, screening_weights, amg, state: SolverState, aux):
+        n_sites = op.areas.shape[0]
+        rdtype = state.mu.dtype
+        time = state.time
+        # --- time-dependent inputs (traced path) ---
+        if cfg.A_fn is not None:
+            A_applied = cfg.A_fn(time).to(rdtype)
+            dA_dt = torch.sum(
+                (A_applied - state.A_applied) / state.prev_dt
+                * aux["unit_dirs"], dim=1)
+        else:
+            A_applied = state.A_applied
+            dA_dt = state.dA_dt
+        epsilon = (cfg.eps_fn(time).to(rdtype)
+                   if cfg.eps_fn is not None else state.epsilon)
+        mu_boundary = (cfg.mu_boundary_fn(time).to(rdtype)
+                       if cfg.mu_boundary_fn is not None
+                       else state.mu_boundary)
+
+        old_sq = torch.sum(state.psi * state.psi, dim=-1)
+        dt0 = state.tentative_dt
+
+        def tdgl_update(psi_in, mu_in, A_induced, dt, fixed_iters=None,
+                        solve_guess=None):
+            # Within the screening fixed point the previous iterate's psi
+            # and mu feed the Euler update, with |psi^n|^2 kept as the old
+            # superfluid density (the reference's semantics).
+            U = aux.get("U")
+            if U is None:
+                A_total = (A_applied + A_induced if cfg.include_screening
+                           else A_applied)
+                U = gtdgl.edge_link_phases(A_total, op.edge_directions)
+            psi_n, sq_n, dt_used, fail = euler_with_retries(
+                op, U, psi_in, old_sq, mu_in, epsilon, dt)
+            J_s, mu_n, J_n, cg_iters, cg_res = observables(
+                op, amg, U, psi_n, dA_dt, mu_boundary,
+                mu_in if solve_guess is None else solve_guess,
+                fixed_iters=fixed_iters)
+            return (psi_n, sq_n, mu_n, J_s, J_n, dt_used, fail, cg_iters,
+                    cg_res)
+
+        if cfg.include_screening:
+            tol = cfg.screening_tolerance
+            app_scale = torch.max(torch.sqrt(
+                torch.sum(A_applied * A_applied, dim=-1)))
+            A_ind, x_prev = state.A_induced, state.A_induced
+            velocity = torch.zeros_like(state.A_induced)
+            psi_n, mu_n, dt_used = state.psi, state.mu, dt0
+            zeros_e = torch.zeros(op.edges.shape[0], dtype=rdtype,
+                                  device=state.mu.device)
+            big = torch.full((), 1e30, dtype=rdtype, device=state.mu.device)
+            sq_n, J_s, J_n, err, cg_res = old_sq, zeros_e, zeros_e, big, big
+            cg_iters = aux["zero_i32"]
+            fail = torch.zeros_like(state.done)
+            s = 0
+            # The JAX while_loop, with one host read of the error per
+            # iteration.
+            while s <= cfg.max_iterations_per_step:
+                (psi_n, sq_n, mu_n, J_s, J_n, dt_used, fail_i, cg_iters,
+                 cg_res) = tdgl_update(psi_n, mu_n, A_ind, dt_used,
+                                       fixed_iters=cfg.screening_cg_iters)
+                fail = torch.logical_or(fail, fail_i)
+                J_site = gtdgl.edge_quantity_to_sites(
+                    op, J_s + J_n, n_sites, aux["unit_dirs"])
+                Jw = J_site * aux["screen_w"]
+                A_new = induced_vector_potential(aux["edge_centers"],
+                                                 aux["sites"], Jw)
+                A_ind, velocity, x_prev, dA = induced_potential_update(
+                    cfg, s, A_ind, A_new, velocity, x_prev)
+                err = screening_error(cfg, dA, A_ind, app_scale)
+                s += 1
+                if not bool(err >= tol):
+                    break
+            fail = torch.logical_or(fail, err >= tol)
+            fail = torch.logical_or(fail, cg_res > residual_allowed(rdtype))
+            A_induced = A_ind
+            screening_iters = torch.full((), s, dtype=torch.int32,
+                                         device=state.mu.device)
+        else:
+            guess = (2.0 * state.mu - state.mu_prev
+                     if cfg.poisson_predictor else None)
+            (psi_n, sq_n, mu_n, J_s, J_n, dt_used, fail, cg_iters,
+             cg_res) = tdgl_update(state.psi, state.mu, state.A_induced,
+                                   dt0, solve_guess=guess)
+            if cfg.poisson_fixed_iters is not None:
+                fail = torch.logical_or(fail,
+                                        cg_res > residual_allowed(rdtype))
+            A_induced = state.A_induced
+            screening_iters = aux["zero_i32"]
+
+        # --- adaptive time-step selection ---
+        d_psi_sq = torch.max(torch.abs(sq_n - old_sq))
+        W = cfg.adaptive_window
+        window = torch.where(aux["window_ix"] == state.step % W,
+                             d_psi_sq.to(rdtype), state.dpsi_window)
+        if cfg.adaptive:
+            new_dt_est = cfg.dt_init / torch.clamp(torch.mean(window),
+                                                   min=1e-10)
+            tentative = torch.clamp(0.5 * (new_dt_est + dt_used), 0.0,
+                                    cfg.dt_max)
+            tentative = torch.where(state.step > W, tentative,
+                                    state.tentative_dt)
+        else:
+            tentative = state.tentative_dt
+
+        new_state = SolverState(
+            psi=psi_n,
+            mu=mu_n,
+            mu_prev=state.mu,
+            supercurrent=J_s,
+            normal_current=J_n,
+            A_induced=A_induced,
+            A_applied=A_applied,
+            epsilon=epsilon,
+            mu_boundary=mu_boundary,
+            dA_dt=dA_dt,
+            tentative_dt=tentative.to(rdtype),
+            prev_dt=dt_used.to(rdtype),
+            time=time + dt_used,
+            step=state.step + 1,
+            dpsi_window=window,
+            end_time=state.end_time,
+            done=torch.logical_or(time >= state.end_time, fail),
+            failed=torch.logical_or(state.failed, fail),
+        )
+        probe_ix = aux["probe_ix"]
+        outputs = StepOutputs(
+            dt=dt_used,
+            time=time + dt_used,
+            mu_probe=mu_n[probe_ix],
+            theta_probe=torch.atan2(psi_n[probe_ix, 1], psi_n[probe_ix, 0]),
+            screening_iterations=screening_iters,
+            cg_iterations=cg_iters,
+            valid=aux["one_i32"],
+        )
+        return new_state, outputs
+
+    return step
+
+
+def make_chunk_fn(cfg: StepConfig, chunk_size: int):
+    """``(op, screening_weights, amg, state) -> (state, outputs,
+    exported)`` advancing up to ``chunk_size`` steps, as a Python loop.
+
+    Steps after ``done`` (one host read per step) pass the state through
+    unchanged and emit ``valid=0`` outputs, so the outputs keep their
+    shapes while the host controls stage boundaries. ``exported`` is the
+    real-typed view of the final state (:func:`export_state_arrays`). The
+    link variables of a static applied potential without screening are
+    computed once per chunk (the same values the JAX step recomputes every
+    step).
+    """
+    step_fn = make_step_fn(cfg)
+    n_probe = len(cfg.probe_ix) if cfg.probe_ix else 0
+
+    def chunk_fn(op, screening_weights, amg, state: SolverState):
+        dev = state.mu.device
+        rdtype = state.mu.dtype
+        aux = dict(
+            probe_ix=torch.tensor(list(cfg.probe_ix or ()), dtype=torch.long,
+                                  device=dev),
+            window_ix=torch.arange(cfg.adaptive_window, dtype=torch.int32,
+                                   device=dev),
+            zero_i32=torch.zeros((), dtype=torch.int32, device=dev),
+            one_i32=torch.ones((), dtype=torch.int32, device=dev),
+            unit_dirs=gtdgl.unit_edge_directions(op, rdtype),
+        )
+        if cfg.A_fn is None and not cfg.include_screening:
+            aux["U"] = gtdgl.edge_link_phases(state.A_applied,
+                                              op.edge_directions)
+        if cfg.include_screening:
+            aux["screen_w"] = screening_weights.to(rdtype)[:, None]
+            aux["sites"] = op.sites.to(rdtype)
+            aux["edge_centers"] = op.edge_centers.to(rdtype)
+        z = torch.zeros((), dtype=rdtype, device=dev)
+        frozen = StepOutputs(
+            dt=z, time=z,
+            mu_probe=torch.zeros(n_probe, dtype=rdtype, device=dev),
+            theta_probe=torch.zeros(n_probe, dtype=rdtype, device=dev),
+            screening_iterations=aux["zero_i32"],
+            cg_iterations=aux["zero_i32"],
+            valid=aux["zero_i32"],
+        )
+        steps = []
+        for _ in range(chunk_size):
+            if bool(state.done):
+                steps.append(frozen)
+                continue
+            state, out = step_fn(op, screening_weights, amg, state, aux)
+            steps.append(out)
+        outputs = StepOutputs(*(torch.stack(field) for field in zip(*steps)))
+        return state, outputs, export_state_arrays(state)
+
+    return chunk_fn

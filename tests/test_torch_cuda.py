@@ -419,3 +419,104 @@ def test_dynamic_and_screened_chunks_match_cpu(cuda_device, mesh_device,
         a, b = getattr(g, name).cpu(), getattr(c, name)
         assert (a - b).abs().max() <= 1e-10 * max(b.abs().max(), 1e-30), \
             name
+
+
+@pytest.fixture(scope="module")
+def ell_device():
+    """The film of ``mesh_device`` on the default (Delaunay) mesh: the
+    unstructured (ELL) backend."""
+    layer = ttdgl.Layer(coherence_length=1.0, london_lambda=2.0,
+                        thickness=0.1, conductivity=10.0)
+    film = ttdgl.Polygon("film", points=ttdgl.box(14, 8)).resample(120)
+    hole = ttdgl.Polygon("hole", points=ttdgl.circle(1.0, center=(2, 1)))
+    source = ttdgl.Polygon("source", points=ttdgl.box(1, 6, center=(-7, 0)))
+    drain = ttdgl.Polygon("drain", points=ttdgl.box(1, 6, center=(7, 0)))
+    device = ttdgl.Device("ell", layer=layer, film=film, holes=[hole],
+                          terminals=[source, drain],
+                          probe_points=[(-4, 0), (4, 0)], length_units="um")
+    device.make_mesh(min_points=400)
+    return device
+
+
+def _ell_case(case):
+    opts = dict(solve_time=1e9, dt_init=1e-3, save_every=20,
+                dtype="float64", field_units="mT", current_units="uA")
+    kw = dict(applied_vector_potential=0.5,
+              terminal_currents=dict(source=3.0, drain=-3.0))
+    if case == "traced":
+        kw = dict(applied_vector_potential=ttdgl.ConstantField(0.5)
+                  * ttdgl.LinearRamp(tmin=0.0, tmax=1e-2),
+                  terminal_currents=_current_ramp)
+    elif case == "screened":
+        opts.update(dt_init=1e-4, adaptive=False, save_every=10,
+                    include_screening=True, screening_tolerance=1e-4,
+                    screening_error_norm="global")
+    return opts, kw
+
+
+@pytest.mark.parametrize("case", ["static", "traced", "screened"])
+def test_ell_chunk_on_card_matches_cpu(cuda_device, ell_device, case):
+    """A float64 ELL chunk on the card against the same solver on the CPU,
+    to 1e-10, with equal CG and screening iteration counts; the two CUDA
+    step kernels are not launched (the ELL step has none)."""
+    opts, kw = _ell_case(case)
+    out = {}
+    for where in ("cuda", "cpu"):
+        solver = ttdgl.TDGLSolver(ell_device, ttdgl.SolverOptions(**opts),
+                                  torch_device=where, **kw)
+        assert not solver.structured
+        step_kernels.reset_launch_counts()
+        state, outputs, _ = solver.chunk_fn(solver._initial_state())
+        out[where] = (state, outputs,
+                      [fn.launches for fn in step_kernels.KERNELS])
+    (g, g_out, launches), (c, c_out, _) = out["cuda"], out["cpu"]
+    assert launches == [0, 0]
+    assert int(g.step) == int(c.step) == opts["save_every"]
+    for field in ("cg_iterations", "screening_iterations"):
+        assert torch.equal(getattr(g_out, field).cpu(),
+                           getattr(c_out, field)), field
+    for name in ("psi", "mu", "supercurrent", "A_induced", "A_applied",
+                 "mu_boundary"):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        assert (a - b).abs().max() <= 1e-10 * max(b.abs().max(), 1e-30), \
+            name
+
+
+def test_ell_float32_chunk_repeats_bitwise(cuda_device, ell_device):
+    """A float32 ELL chunk (adaptive dt, AMG, tolerance-stopped CG) run 10
+    times from one state gives bitwise-equal states: the Neumann term,
+    the edge-to-site average and the AMG restriction are gathers in a
+    fixed order, not atomics."""
+    opts, kw = _ell_case("static")
+    opts.update(dtype="float32")
+    solver = ttdgl.TDGLSolver(ell_device, ttdgl.SolverOptions(**opts),
+                              torch_device=cuda_device, **kw)
+    start = solver._initial_state()
+    runs = [solver.chunk_fn(start) for _ in range(10)]
+    for state, outputs, _ in runs[1:]:
+        for name in ("psi", "mu", "supercurrent", "normal_current"):
+            assert torch.equal(getattr(state, name),
+                               getattr(runs[0][0], name)), name
+        assert torch.equal(outputs.cg_iterations, runs[0][1].cg_iterations)
+        assert torch.equal(outputs.dt, runs[0][1].dt)
+
+
+def test_ell_solve_on_card(cuda_device, ell_device, tmp_path):
+    """``solve()`` on an unstructured mesh on the card: its re-read
+    ``Solution`` ``.equals`` it, and a site limit far below the mesh
+    (``unstructured_tpu_site_limit``) keeps every tensor on the card."""
+    opts = dict(solve_time=0.04, dt_init=1e-3, adaptive=False, save_every=20,
+                dtype="float64", field_units="mT", current_units="uA",
+                unstructured_tpu_site_limit=10,
+                output_file=str(tmp_path / "ell.h5"))
+    solver = ttdgl.TDGLSolver(ell_device, ttdgl.SolverOptions(**opts),
+                              applied_vector_potential=0.5,
+                              terminal_currents=dict(source=3.0, drain=-3.0),
+                              torch_device=cuda_device)
+    state = solver._initial_state()
+    tensors = list(solver.op) + list(solver.amg) + list(state)
+    assert all(t.device.type == "cuda" for t in tensors)
+    solution = solver.solve()
+    assert solution.data_range[1] >= 2
+    assert np.isfinite(solution.tdgl_data.psi).all()
+    assert ttdgl.Solution.from_hdf5(solution.path).equals(solution)

@@ -52,12 +52,12 @@ def _transport_device(pkg):
     return device
 
 
-def _box_device(pkg):
+def _box_device(pkg, structured=True):
     layer = pkg.Layer(coherence_length=1.0, london_lambda=2.0,
                       thickness=0.1, conductivity=10.0)
     film = pkg.Polygon("film", points=pkg.box(10)).resample(100)
     device = pkg.Device("box", layer=layer, film=film, length_units="um")
-    device.make_mesh(min_points=400, structured=True)
+    device.make_mesh(min_points=400, structured=structured)
     return device
 
 
@@ -136,9 +136,35 @@ def test_unported_paths_raise():
         ttdgl.TDGLSolver(device, ttdgl.SolverOptions(
             include_screening=True, screening_kernel="mxu", **opts),
             torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="unstructured"):
-        ttdgl.TDGLSolver(device, ttdgl.SolverOptions(
-            solver_backend="ell", **opts), torch_device="cpu")
+    # The ELL backend is ported: solver_backend="ell" on a structured mesh
+    # builds an ELL solver.
+    ell = ttdgl.TDGLSolver(device, ttdgl.SolverOptions(
+        solver_backend="ell", **opts), torch_device="cpu")
+    assert not ell.structured and ell.op is not None and ell.sten is None
+    # On an unstructured mesh the stencil-only options raise, as in the
+    # JAX package.
+    for pkg, kw in ((jtdgl, {}), (ttdgl, {"torch_device": "cpu"})):
+        mesh_device = _box_device(pkg, structured=False)
+        for bad, error in ((dict(chunk_failover="on"),
+                            pkg.SolverOptionsError),
+                           (dict(poisson_solver="mg"),
+                            pkg.SolverOptionsError),
+                           (dict(include_screening=True,
+                                 screening_kernel="fft"), ValueError)):
+            solver_cls = JaxSolver if pkg is jtdgl else ttdgl.TDGLSolver
+            with pytest.raises(error):
+                solver_cls(mesh_device, pkg.SolverOptions(**bad, **opts),
+                           **kw)
+    # Above unstructured_tpu_site_limit every tensor stays on the
+    # requested device (the JAX package moves such solves to the host).
+    small_limit = ttdgl.TDGLSolver(
+        mesh_device, ttdgl.SolverOptions(unstructured_tpu_site_limit=10,
+                                         **opts), torch_device="cpu")
+    state = small_limit._initial_state()
+    tensors = (list(small_limit.op) + list(small_limit.amg) + list(state))
+    assert all(t.device == torch.device("cpu") for t in tensors)
+    state, _, _ = small_limit.chunk_fn(state)
+    assert state.psi.device == torch.device("cpu")
     solver = ttdgl.TDGLSolver(device, ttdgl.SolverOptions(**opts),
                               torch_device="cpu")
     with pytest.raises(NotImplementedError, match="resume"):
