@@ -19,12 +19,13 @@ from __future__ import annotations
 import hashlib
 import inspect
 import operator
-import pickle
 from numbers import Number
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+
+from .utils import pickles
 
 _OPERATOR_SYMBOLS = {
     operator.add: "+",
@@ -56,8 +57,9 @@ def _dump_callable(obj):
 
 def _load_callable(state):
     # A cloudpickle stream is a pickle stream; functions pickled by value
-    # need cloudpickle installed to load.
-    return pickle.loads(state) if isinstance(state, bytes) else state
+    # need cloudpickle installed to load. Names of tdgl_tpu modules load
+    # as the port's.
+    return pickles.loads(state) if isinstance(state, bytes) else state
 
 
 class Parameter:

@@ -14,7 +14,12 @@ pickle, which stores functions and classes by reference to their module.
 A port :class:`~tdgl_tpu_torch.sources.ConstantField` therefore refers to
 ``tdgl_tpu_torch.parameter`` and ``tdgl_tpu_torch.sources.constant``, and
 ``tdgl_tpu.Solution.from_hdf5`` loads it wherever ``tdgl_tpu_torch``
-imports. Linear interpolation runs on the mesh without matplotlib
+imports. A file that ``tdgl_tpu`` wrote loads without the JAX package:
+its pickles name ``tdgl_tpu`` modules, which load as the port's modules of
+the same name, and a pickle that needs what this machine lacks (cloudpickle
+for a function stored by value, or a name the port does not have) leaves
+an attribute that raises on access, while the fields, the dynamics and the
+device load. Linear interpolation runs on the mesh without matplotlib
 (:mod:`.tri_interp`); cubic interpolation needs matplotlib. The plots are
 not ported yet (ROADMAP Queue 1: visualization).
 """
@@ -41,7 +46,7 @@ from ..fluxoid import Fluxoid
 from ..geometry import path_vectors
 from ..parameter import Parameter
 from ..solver.options import SolverOptions
-from ..utils import h5lite
+from ..utils import h5lite, pickles
 from ..utils.units import Quantity, ureg
 from .data import (DynamicsData, TDGLData, get_data_range,
                    get_edge_quantity_data, not_ported_plot)
@@ -78,6 +83,50 @@ def check_picklable(**objects) -> None:
             ) from exc
 
 
+class _Unloaded:
+    """A stored callable that could not be unpickled on this machine."""
+
+    def __init__(self, name: str, exc: Exception):
+        self.name = name
+        self.exc = exc
+
+    def error(self) -> RuntimeError:
+        return RuntimeError(
+            f"The solution's {self.name} could not be loaded here"
+            f" ({self.exc!r}): its pickle needs cloudpickle or a name that"
+            " tdgl_tpu_torch lacks."
+        )
+
+
+def loads(raw: bytes, name: str):
+    """Unpickle the stored callable ``name`` with
+    :func:`tdgl_tpu_torch.utils.pickles.loads`; where that fails, an
+    :class:`_Unloaded` marker that raises when the attribute is read."""
+    try:
+        return pickles.loads(raw)
+    except Exception as exc:
+        return _Unloaded(name, exc)
+
+
+class _StoredCallable:
+    """A callable stored with the solution: reading one that could not be
+    loaded raises its error."""
+
+    def __set_name__(self, owner, name):
+        self.key = "_" + name
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return self
+        value = obj.__dict__[self.key]
+        if isinstance(value, _Unloaded):
+            raise value.error()
+        return value
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.key] = value
+
+
 class BiotSavartField(NamedTuple):
     """Fields from the supercurrent and normal current, separately."""
 
@@ -105,6 +154,10 @@ class Solution:
         disorder_epsilon: The disorder parameter (float or callable).
         total_seconds: Wall time of the solve.
     """
+
+    applied_vector_potential = _StoredCallable()
+    terminal_currents = _StoredCallable()
+    disorder_epsilon = _StoredCallable()
 
     def __init__(
         self,
@@ -678,9 +731,8 @@ class Solution:
             if f"{name}.pickle" in group:
                 # A cloudpickle stream loads with pickle (functions pickled
                 # by value need cloudpickle installed).
-                return pickle.loads(
-                    np.void(group[f"{name}.pickle"]).tobytes()
-                )
+                return loads(np.void(group[f"{name}.pickle"]).tobytes(),
+                             name)
             raise IOError(f"Unable to load {name}.")
 
         with h5lite.File(path, "r") as f:

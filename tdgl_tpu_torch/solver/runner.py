@@ -210,6 +210,8 @@ class Runner:
         host_update_fn: Optional ``state -> state`` called before every
             chunk (the host-evaluated time-dependent inputs; the solver
             sets the chunk size to 1 then).
+        resume: The initial state is a checkpoint's: skip thermalization
+            (``skip_time`` is ignored with a warning).
     """
 
     def __init__(
@@ -226,6 +228,7 @@ class Runner:
         checkpoint_meta: Dict[str, object],
         logger: Optional[logging.Logger] = None,
         host_update_fn: Optional[Callable] = None,
+        resume: bool = False,
     ):
         self.chunk_fn = chunk_fn
         self.state = initial_state
@@ -239,6 +242,7 @@ class Runner:
         self._last_export = initial_export
         self.checkpoint_meta = checkpoint_meta
         self.host_update_fn = host_update_fn
+        self.resume = resume
         self.logger = logger or logging.getLogger(__name__)
         self.running_state = RunningState(
             running_names_and_sizes, options.save_every
@@ -266,7 +270,12 @@ class Runner:
 
     def _run_stages(self) -> bool:
         options = self.options
-        if options.skip_time:
+        if options.skip_time and self.resume:
+            self.logger.warning(
+                "skip_time is ignored when resuming from a checkpoint"
+                " (the checkpointed run already thermalized)."
+            )
+        if options.skip_time and not self.resume:
             ok = self._run_stage("Thermalizing", options.skip_time,
                                  save=False)
             if not ok:

@@ -39,8 +39,12 @@ def solve(
             (:func:`~tdgl_tpu_torch.jittable` for the traced path).
         disorder_epsilon: The local critical-temperature parameter
             epsilon(r[, t]) <= 1.
-        seed_solution: Not ported yet (must be None).
-        resume_from: Not ported yet (must be None).
+        seed_solution: A previous Solution to use as the initial state.
+        resume_from: Path to a previous run's output file: restores the
+            run EXACTLY from its ``checkpoint`` group (full device state,
+            including the adaptive-dt integrator state) and continues to
+            ``options.solve_time``. See ``SolverOptions.save_checkpoints``.
+            The file may be one that ``tdgl_tpu`` wrote.
         torch_device: ``"cuda"`` (default; raises where CUDA is not
             available) or ``"cpu"``.
 

@@ -29,9 +29,11 @@ Time-dependent inputs run on one of two paths, as in the JAX package:
 * **host**: plain callables are evaluated on the host before every step
   (chunk size 1, :meth:`TDGLSolver._host_update`).
 
-What this package does not run yet raises ``NotImplementedError`` naming
-its ROADMAP item (Queue 1): seed solutions and resume, and the live
-monitor.
+A run continues exactly from the ``checkpoint`` group of an earlier output
+file (``solve(resume_from=...)``, also one that ``tdgl_tpu`` wrote), or
+starts from the fields of an earlier :class:`~tdgl_tpu_torch.Solution`
+(``seed_solution``). The live monitor is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item (Queue 1, visualization).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from ..ops.amg import build_amg
 from ..ops.hexmg import build_hexmg
 from ..parameter import Parameter
 from ..sources.constant import ConstantField
+from ..utils import h5lite
 from ..utils.units import ureg
 from .grid_step import GridState, make_grid_chunk_fn
 from .options import SolverOptions, SolverOptionsError
@@ -157,7 +160,10 @@ class TDGLSolver:
             traced path).
         disorder_epsilon: Float (<= 1) or callable giving the local
             critical temperature parameter epsilon(r[, t]).
-        seed_solution: Not supported yet (must be None).
+        seed_solution: A previous :class:`tdgl_tpu_torch.Solution` (also
+            one loaded from a ``tdgl_tpu`` file) whose final psi, mu,
+            currents and induced vector potential are the initial state;
+            its device must equal ``device``.
         torch_device: Where every tensor of the solve lives (keyword-only):
             ``"cuda"`` (the default) runs the hand-written kernels and
             raises where CUDA is not available; ``"cpu"`` runs their plain
@@ -185,8 +191,6 @@ class TDGLSolver:
         options.validate()
         self.terminal_currents = terminal_currents
         self.seed_solution = seed_solution
-        if seed_solution is not None:
-            raise _not_ported("seed_solution", "checkpoint and resume")
         if device.mesh is None:
             raise ValueError(
                 "The device has no mesh; call device.make_mesh() first."
@@ -923,35 +927,59 @@ class TDGLSolver:
     def _initial_state(self):
         """The state at t = 0 on ``torch_device`` (a ``GridState``, or a
         ``SolverState`` on the ELL backend), and its step-0 export dict
-        (``self._initial_export``)."""
-        if not self.structured:
-            return self._initial_ell_state()
-        options = self.options
+        (``self._initial_export``): the uniform start, or the final fields
+        of ``seed_solution``."""
         rd = self.rdtype
-        maps = self.maps
-        s2g = maps.site_to_grid
-        e2g = maps.edge_to_grid
-        psi = self.psi_init
-        psi_r = s2g(np.ascontiguousarray(np.real(psi), dtype=rd))
-        psi_i = s2g(np.ascontiguousarray(np.imag(psi), dtype=rd))
-        mu = s2g(np.asarray(self.mu_init, rd))
-        zeros_e = e2g(np.zeros(self.num_edges, dtype=rd))
-        A_induced = e2g(np.zeros((self.num_edges, 2), dtype=rd))
-        if self._full_A_grid is not None:
-            # Factored-link-phase path: fill the WHOLE padded grid with the
-            # smooth applied potential, so the per-chunk row/col factor
-            # extraction reads true values everywhere.
-            A_applied = self._full_A_grid.astype(rd)
+        n_edges = self.num_edges
+        if self.seed_solution is not None:
+            if self.seed_solution.device != self.device:
+                raise ValueError(
+                    "The seed_solution.device must match the device being"
+                    " simulated."
+                )
+            seed = self.seed_solution.tdgl_data
+            psi = np.asarray(seed.psi, dtype=self.cdtype)
+            fields = dict(
+                mu=np.asarray(seed.mu, dtype=rd),
+                supercurrent=np.asarray(seed.supercurrent, dtype=rd),
+                normal_current=np.asarray(seed.normal_current, dtype=rd),
+                A_induced=np.asarray(seed.induced_vector_potential,
+                                     dtype=rd),
+            )
         else:
-            A_applied = e2g(self.current_A_applied.astype(rd))
-        epsilon = s2g(np.asarray(self.epsilon, rd))
+            psi = self.psi_init
+            fields = dict(
+                mu=np.asarray(self.mu_init, rd),
+                supercurrent=np.zeros(n_edges, dtype=rd),
+                normal_current=np.zeros(n_edges, dtype=rd),
+                A_induced=np.zeros((n_edges, 2), dtype=rd),
+            )
+        psi_r = np.ascontiguousarray(np.real(psi), dtype=rd)
+        psi_i = np.ascontiguousarray(np.imag(psi), dtype=rd)
+        epsilon = np.asarray(self.epsilon, rd)
+        if self.structured:
+            maps = self.maps
+            s2g, e2g = maps.site_to_grid, maps.edge_to_grid
+            psi_r, psi_i, epsilon = s2g(psi_r), s2g(psi_i), s2g(epsilon)
+            fields = {k: (s2g(v) if k == "mu" else e2g(v))
+                      for k, v in fields.items()}
+            if self._full_A_grid is not None:
+                # Factored-link-phase path: fill the WHOLE padded grid with
+                # the smooth applied potential, so the per-chunk row/col
+                # factor extraction reads true values everywhere.
+                A_applied = self._full_A_grid.astype(rd)
+            else:
+                A_applied = e2g(self.current_A_applied.astype(rd))
+        else:
+            A_applied = self.current_A_applied.astype(rd)
+        options = self.options
         self._initial_export = dict(
             psi_real=psi_r,
             psi_imag=psi_i,
-            mu=mu,
-            supercurrent=zeros_e,
-            normal_current=zeros_e,
-            induced_vector_potential=A_induced,
+            mu=fields["mu"],
+            supercurrent=fields["supercurrent"],
+            normal_current=fields["normal_current"],
+            induced_vector_potential=fields["A_induced"],
             applied_vector_potential=A_applied,
             epsilon=epsilon,
             diagnostics=np.array(
@@ -968,18 +996,15 @@ class TDGLSolver:
         def scalar(v, dtype=td):
             return torch.tensor(v, dtype=dtype, device=dev)
 
-        return GridState(
-            psi_r=t(psi_r),
-            psi_i=t(psi_i),
-            mu=t(mu),
-            mu_prev=t(mu),
-            supercurrent=t(zeros_e),
-            normal_current=t(zeros_e),
-            A_induced=t(A_induced),
+        common = dict(
+            mu=t(fields["mu"]),
+            mu_prev=t(fields["mu"]),
+            supercurrent=t(fields["supercurrent"]),
+            normal_current=t(fields["normal_current"]),
+            A_induced=t(fields["A_induced"]),
             A_applied=t(A_applied),
             epsilon=t(epsilon),
-            neumann_term=t(self._host_neumann_term(self._mu_boundary(0.0))),
-            dA_dt=t(zeros_e),
+            dA_dt=torch.zeros_like(t(fields["supercurrent"])),
             tentative_dt=scalar(options.dt_init),
             prev_dt=scalar(options.dt_init),
             time=scalar(0.0),
@@ -990,61 +1015,17 @@ class TDGLSolver:
             done=scalar(False, torch.bool),
             failed=scalar(False, torch.bool),
         )
-
-    def _initial_ell_state(self) -> SolverState:
-        """:meth:`_initial_state` on the ELL backend."""
-        options = self.options
-        rd = self.rdtype
-        n_edges = self.num_edges
-        psi = self.psi_init
-        zeros_e = np.zeros(n_edges, dtype=rd)
-        A_induced = np.zeros((n_edges, 2), dtype=rd)
-        A_applied = self.current_A_applied.astype(rd)
-        self._initial_export = dict(
-            psi_real=np.real(psi).astype(rd),
-            psi_imag=np.imag(psi).astype(rd),
-            mu=np.asarray(self.mu_init, rd),
-            supercurrent=zeros_e,
-            normal_current=zeros_e,
-            induced_vector_potential=A_induced,
-            applied_vector_potential=A_applied,
-            epsilon=np.asarray(self.epsilon, rd),
-            diagnostics=np.array(
-                [0.0, options.dt_init, options.dt_init, 0.0, 0.0, 0.0],
-                np.float32,
-            ),
-        )
-        dev = self.torch_device
-        td = self.torch_dtype
-
-        def t(a):
-            return convert.to_tensor(a, dev)
-
-        def scalar(v, dtype=td):
-            return torch.tensor(v, dtype=dtype, device=dev)
-
-        psi_pair = np.stack([np.real(psi), np.imag(psi)], axis=-1).astype(rd)
+        if self.structured:
+            return GridState(
+                psi_r=t(psi_r), psi_i=t(psi_i),
+                neumann_term=t(self._host_neumann_term(
+                    self._mu_boundary(0.0))),
+                **common)
+        # The ELL state holds psi as an (N, 2) re/im pair.
         return SolverState(
-            psi=t(psi_pair),
-            mu=t(np.asarray(self.mu_init, rd)),
-            mu_prev=t(np.asarray(self.mu_init, rd)),
-            supercurrent=t(zeros_e),
-            normal_current=t(zeros_e),
-            A_induced=t(A_induced),
-            A_applied=t(A_applied),
-            epsilon=t(np.asarray(self.epsilon, rd)),
+            psi=t(np.stack([psi_r, psi_i], axis=-1)),
             mu_boundary=t(self._mu_boundary(0.0)),
-            dA_dt=t(zeros_e),
-            tentative_dt=scalar(options.dt_init),
-            prev_dt=scalar(options.dt_init),
-            time=scalar(0.0),
-            step=scalar(0, torch.int32),
-            dpsi_window=torch.zeros(options.adaptive_window, dtype=td,
-                                    device=dev),
-            end_time=scalar(options.solve_time),
-            done=scalar(False, torch.bool),
-            failed=scalar(False, torch.bool),
-        )
+            **common)
 
     def _state_to_arrays(self, exported) -> Dict[str, np.ndarray]:
         """Convert an exported-state dict (``export_grid_state_arrays`` or
@@ -1083,6 +1064,129 @@ class TDGLSolver:
         h.update(np.ascontiguousarray(self.mesh.elements, np.int64).tobytes())
         return h.hexdigest()
 
+    def _resume_state(self, resume_from: str, template):
+        """Load the ``checkpoint`` group of a previous run's output file
+        (this package's or ``tdgl_tpu``'s) and return ``(state,
+        initial_export)`` reproducing that run's exact state on
+        ``torch_device`` (see ``SolverOptions.save_checkpoints``). The
+        solver must be constructed with the same mesh, dtype, and backend
+        as the checkpointed run; every mismatch raises a ``ValueError``.
+        Fields keep the checkpoint's dtype; where they were written
+        (CPU or card) does not matter."""
+        with h5lite.File(resume_from, "r") as f:
+            if "checkpoint" not in f:
+                raise ValueError(
+                    f"{resume_from!r} contains no checkpoint: the run was"
+                    " saved with save_checkpoints=False, was cancelled"
+                    " during thermalization, or predates checkpoint"
+                    " support."
+                )
+            grp = f["checkpoint"]
+            backend = grp.attrs.get("backend", "")
+            expected = "grid" if self.structured else "ell"
+            if backend != expected:
+                raise ValueError(
+                    f"Checkpoint backend {backend!r} does not match this"
+                    f" solver's {expected!r} (make_mesh(structured="
+                    f"{'True' if backend == 'grid' else 'False'}) to"
+                    " match)."
+                )
+            fingerprint = grp.attrs.get("mesh_fingerprint", "")
+            if fingerprint != self._mesh_fingerprint():
+                raise ValueError(
+                    "Checkpoint mesh does not match this solver's mesh:"
+                    " resuming requires the SAME device and mesh as the"
+                    " checkpointed run (site/element fingerprint differs)."
+                )
+            fields = {}   # host numpy values, keyed by state field name
+            for name in template._fields:
+                if name in ("done", "failed", "end_time"):
+                    continue  # reset below / set per stage by the runner
+                tmpl = getattr(template, name)
+                dtype = torch.empty(0, dtype=tmpl.dtype).numpy().dtype
+                if name in grp:
+                    arr = np.asarray(grp[name])
+                    if tuple(arr.shape) != tuple(tmpl.shape):
+                        raise ValueError(
+                            f"Checkpoint field {name!r} has shape"
+                            f" {arr.shape}, expected {tuple(tmpl.shape)}:"
+                            " resuming requires the same device, mesh, and"
+                            " options as the checkpointed run."
+                        )
+                    if arr.dtype != dtype:
+                        raise ValueError(
+                            f"Checkpoint field {name!r} has dtype"
+                            f" {arr.dtype}, expected {dtype}: resume with"
+                            " the same SolverOptions.dtype as the"
+                            " checkpointed run."
+                        )
+                    fields[name] = arr
+                elif name in grp.attrs:
+                    # 0-d fields are attributes (Python numbers): cast
+                    # straight to the state's dtype, exactly.
+                    fields[name] = np.asarray(grp.attrs[name], dtype=dtype)
+                else:
+                    raise ValueError(
+                        f"Checkpoint is missing state field {name!r}."
+                    )
+            time_val = float(fields["time"])
+            if time_val >= self.options.solve_time:
+                raise ValueError(
+                    f"The checkpoint is already at t = {time_val:.6g} >="
+                    f" solve_time = {self.options.solve_time}: raise"
+                    " solve_time to continue the run."
+                )
+        if self.cfg.factor_link_phases and self._full_A_grid is not None:
+            # The factored-link path extracts its row/col phase factors
+            # from state.A_applied, which must be the SMOOTH full-grid
+            # fill. Repair a checkpoint that matches at the real edges
+            # (the masked, edge-scattered fill) in place; reject anything
+            # else.
+            smooth = self._full_A_grid
+            tol = dict(rtol=1e-5,
+                       atol=1e-6 * max(float(np.abs(smooth).max()), 1e-30))
+            ck = np.asarray(fields["A_applied"], np.float64)
+            if not np.allclose(ck, smooth, **tol):
+                at_edges = self.maps.grid_to_edge(ck)
+                if not np.allclose(
+                        at_edges, self.current_A_applied.astype(np.float64),
+                        **tol):
+                    raise ValueError(
+                        "Checkpoint A_applied does not match this solver's"
+                        " applied potential; resume with the same"
+                        " applied_vector_potential, or set"
+                        " factor_link_phases=False."
+                    )
+                fields["A_applied"] = smooth.astype(fields["A_applied"].dtype)
+        dev = self.torch_device
+        state = template._replace(
+            **{k: convert.to_tensor(v, dev) for k, v in fields.items()},
+            done=torch.zeros_like(template.done),
+            failed=torch.zeros_like(template.failed),
+        )
+        # Host view of the resumed state for the step-0 snapshot.
+        if self.structured:
+            psi_real, psi_imag = fields["psi_r"], fields["psi_i"]
+        else:
+            psi_real, psi_imag = fields["psi"][..., 0], fields["psi"][..., 1]
+        export = dict(
+            psi_real=psi_real,
+            psi_imag=psi_imag,
+            mu=fields["mu"],
+            supercurrent=fields["supercurrent"],
+            normal_current=fields["normal_current"],
+            induced_vector_potential=fields["A_induced"],
+            applied_vector_potential=fields["A_applied"],
+            epsilon=fields["epsilon"].astype(self.rdtype),
+            diagnostics=np.array(
+                [float(fields["time"]), float(fields["prev_dt"]),
+                 float(fields["tentative_dt"]), float(fields["step"]),
+                 0.0, 0.0],
+                np.float32,
+            ),
+        )
+        return state, export
+
     def solve(self, resume_from: Optional[str] = None):
         """Run the simulation; returns a :class:`tdgl_tpu_torch.Solution`
         (or None if cancelled during thermalization).
@@ -1094,12 +1198,20 @@ class TDGLSolver:
         checked to be storable before any step runs.
 
         Args:
-            resume_from: Not ported yet (must be None).
+            resume_from: Path to a previous run's output file (this
+                package's or ``tdgl_tpu``'s). The solver state is restored
+                EXACTLY from that file's ``checkpoint`` group (written at
+                every snapshot when ``SolverOptions.save_checkpoints`` is
+                on), so the continued trajectory is step-for-step identical
+                to an uninterrupted run; output goes to this run's own
+                ``output_file`` and the time axis continues from the
+                checkpoint. Preemption-safe long runs: checkpoint +
+                resume_from. (The reference's only warm restart,
+                ``seed_solution``, re-seeds fields but loses the integrator
+                state.)
         """
         from ..solution.solution import Solution, check_picklable
 
-        if resume_from is not None:
-            raise _not_ported("resume_from", "checkpoint and resume")
         options = self.options
         if options.monitor:
             raise _not_ported("The live monitor (SolverOptions.monitor)",
@@ -1118,6 +1230,14 @@ class TDGLSolver:
             running["screening_iterations"] = 1
 
         state = self._initial_state()
+        if resume_from is not None:
+            if self.seed_solution is not None:
+                raise ValueError(
+                    "Pass either seed_solution or resume_from, not both."
+                )
+            state, self._initial_export = self._resume_state(
+                resume_from, state
+            )
         fixed = {}
         if not self.dynamic_vector_potential:
             fixed["applied_vector_potential"] = self.current_A_applied
@@ -1148,6 +1268,7 @@ class TDGLSolver:
                     "mesh_fingerprint": self._mesh_fingerprint(),
                 },
                 logger=logger,
+                resume=(resume_from is not None),
             )
             data_was_generated = runner.run()
             end_time = datetime.now()

@@ -33,12 +33,19 @@ data) is reused after the next flush, when no flushed header refers to it
 any more: a group that is replaced at every flush with arrays of the same
 sizes costs two copies of its size in the file, not one per flush.
 
-The reader reads every file this module writes, and no more: files in
-HDF5's default (earliest) format, as h5py writes them unless asked for
-the latest (superblock 0, version-1 object headers, symbol-table groups),
-header continuations, dense link or attribute storage, compact, chunked
-or filtered datasets, committed datatypes, and types other than those
-above raise ``OSError`` naming what was found.
+What it reads: every file it writes, and the files h5py writes in HDF5's
+default (earliest) format, as ``tdgl_tpu`` writes its output: superblock
+version 0 or 1, version-1 object headers with continuation blocks beside
+version-2 ones, symbol-table groups (a version-1 group B-tree of any
+depth over symbol-table nodes, with names in a local heap), groups that
+track creation order with compact or dense link storage (a fractal heap
+indexed by a version-2 B-tree), dataspaces of version 1 and 2, attribute
+messages of versions 1 to 3, contiguous and compact layouts, compound
+and enum types of versions 1 to 3, and variable-length strings in global
+heaps. Files in HDF5's default format are read only: ``"r+"`` on one
+raises ``OSError``. Chunked or filtered datasets, external storage,
+dense attribute storage, committed (shared) datatypes, and types other
+than those above raise ``OSError`` naming what was found.
 """
 
 from __future__ import annotations
@@ -61,9 +68,8 @@ _GROUP_INFO, _FILTERS, _ATTRIBUTE = 0x0A, 0x0B, 0x0C
 _CONTINUATION, _SYMBOL_TABLE, _ATTRIBUTE_INFO = 0x10, 0x11, 0x15
 
 _UNSUPPORTED_MESSAGES = {
+    0x07: "external data storage",
     _FILTERS: "a filter pipeline (compressed or filtered dataset)",
-    _CONTINUATION: "an object header continuation",
-    _SYMBOL_TABLE: "a symbol-table group (HDF5's default format)",
 }
 
 # The variable-length string type (h5py's ``string_dtype()``).
@@ -187,17 +193,18 @@ def _decode_dtype(b: bytes, p: int) -> Tuple[np.dtype, int]:
         return np.dtype(f"<f{size}"), q + 12
     if cls == 5:
         return np.dtype(f"V{size}"), q + (bits & 0xFF)
-    if cls in (6, 8) and version < 3:
-        raise OSError(f"h5lite reads compound and enum types of version 3"
-                      f" and later, not {version}.")
     if cls == 6:
-        # Only h5py's complex: {r: float, i: float} (version 3+ members:
-        # name, offset in the fewest bytes that hold the size, type).
+        # Only h5py's complex: {r: float, i: float}. Member names are
+        # null-terminated, padded to 8 bytes before version 3; version 1
+        # members also carry an (unused) array description.
         names, parts = [], []
         for _ in range(bits & 0xFFFF):
             end = b.index(b"\x00", q)
             names.append(b[q:end].decode("utf-8"))
-            q = end + 1 + _limit_enc_size(size)
+            if version < 3:
+                q += (end - q) // 8 * 8 + 8 + 4 + (28 if version == 1 else 0)
+            else:
+                q = end + 1 + _limit_enc_size(size)
             member, q = _decode_dtype(b, q)
             parts.append(member)
         if names != ["r", "i"] or parts[0] != parts[1] or parts[0].kind != "f":
@@ -205,13 +212,14 @@ def _decode_dtype(b: bytes, p: int) -> Tuple[np.dtype, int]:
                           f" complex {{r, i}}, not {names}.")
         return np.dtype(f"<c{size}"), q
     if cls == 8:
-        # Only h5py's bool: an int8 enum FALSE=0, TRUE=1.
+        # Only h5py's bool: an int8 enum FALSE=0, TRUE=1 (names padded to
+        # 8 bytes before version 3).
         base, q = _decode_dtype(b, q)
         names = []
         for _ in range(bits & 0xFFFF):
             end = b.index(b"\x00", q)
             names.append(b[q:end].decode("utf-8"))
-            q = end + 1
+            q = end + 1 if version >= 3 else q + (end - q) // 8 * 8 + 8
         values = b[q:q + len(names) * base.itemsize]
         if (base != np.dtype("i1") or names != ["FALSE", "TRUE"]
                 or values != b"\x00\x01"):
@@ -238,11 +246,15 @@ def _encode_dataspace(shape: Tuple[int, ...]) -> bytes:
 
 
 def _decode_dataspace(b: bytes, p: int = 0) -> Tuple[int, ...]:
-    version, rank, kind = b[p], b[p + 1], b[p + 3]
-    if version != 2 or kind == 2:
+    """A simple or scalar dataspace of version 1 (8 reserved bytes before
+    the sizes) or 2."""
+    version, rank = b[p], b[p + 1]
+    kind = b[p + 3] if version == 2 else (1 if rank else 0)
+    if version not in (1, 2) or kind == 2:
         raise OSError(f"h5lite reads simple and scalar dataspaces of version"
-                      f" 2, not version {version}, type {kind}.")
-    return tuple(_U64.unpack_from(b, p + 4 + 8 * i)[0] for i in range(rank))
+                      f" 1 or 2, not version {version}, type {kind}.")
+    q = p + (4 if version == 2 else 8)
+    return tuple(_U64.unpack_from(b, q + 8 * i)[0] for i in range(rank))
 
 
 # -- value conversion -------------------------------------------------------------
@@ -355,6 +367,7 @@ class _DatasetNode(_Node):
         self.dtype = dtype
         self.data_addr = data_addr
         self.data_size = data_size
+        self.compact: Optional[bytes] = None   # data held in the header
 
     def header_messages(self) -> List[bytes]:
         # Fill value message version 3: allocation late, fill written
@@ -405,6 +418,69 @@ class _HeapCollection:
         out += [_U16.pack(0), _U16.pack(0), bytes(4), _U64.pack(free)]
         raw = b"".join(out)
         return raw + bytes(self.size - len(raw))
+
+
+class _FractalHeap:
+    """Reads the managed objects of a fractal heap (``FRHP``): the store of
+    a group's links under dense link storage."""
+
+    def __init__(self, file: "File", addr: int):
+        raw = file._read(addr, 146)
+        if raw[:4] != b"FRHP" or lookup3(raw[:142]) != _U32.unpack_from(
+                raw, 142)[0]:
+            raise OSError(f"No unfiltered fractal heap header at {addr}.")
+        self.file = file
+        self.id_len = _U16.unpack_from(raw, 5)[0]
+        self.checksummed = bool(raw[9] & 0x02)
+        max_managed = _U32.unpack_from(raw, 10)[0]
+        self.width = _U16.unpack_from(raw, 110)[0]
+        self.start, max_direct = struct.unpack_from("<2Q", raw, 112)
+        max_bits = _U16.unpack_from(raw, 128)[0]
+        self.root = _U64.unpack_from(raw, 132)[0]
+        self.root_rows = _U16.unpack_from(raw, 140)[0]
+        self.offset_size = (max_bits + 7) // 8
+        self.length_size = _limit_enc_size(min(max_direct, max_managed))
+        self.direct_rows = (max_direct.bit_length()
+                            - self.start.bit_length() + 2)
+
+    def object(self, heap_id: bytes) -> bytes:
+        """The object a managed heap ID names."""
+        if heap_id[0] & 0xF0:
+            raise OSError("h5lite reads managed fractal heap objects only,"
+                          " not huge or tiny ones.")
+        o = 1 + self.offset_size
+        offset = int.from_bytes(heap_id[1:o], "little")
+        length = int.from_bytes(heap_id[o:o + self.length_size], "little")
+        if self.root_rows:
+            block, base = self._locate(self.root, self.root_rows, 0, offset)
+        else:
+            block, base = self.root, 0   # the root is a direct block
+        return self.file._read(block + offset - base, length)
+
+    def _locate(self, addr: int, rows: int, base: int, offset: int
+                ) -> Tuple[int, int]:
+        """The direct block holding heap ``offset`` below the indirect
+        block at ``addr`` (``rows`` rows, covering the heap from
+        ``base``): its address and its heap offset."""
+        head = 13 + self.offset_size
+        raw = self.file._read(addr, head + 8 * rows * self.width)
+        if raw[:4] != b"FHIB":
+            raise OSError(f"No fractal heap indirect block at {addr}.")
+        for row in range(rows):
+            size = self.start << max(row - 1, 0)
+            if offset < base + self.width * size:
+                col = (offset - base) // size
+                child = _U64.unpack_from(raw, head + 8 * (row * self.width
+                                                          + col))[0]
+                base += col * size
+                if row < self.direct_rows:
+                    return child, base
+                child_rows = (size.bit_length()
+                              - (self.start * self.width).bit_length() + 1)
+                return self._locate(child, child_rows, base, offset)
+            base += self.width * size
+        raise OSError(f"Fractal heap offset {offset} beyond the block at"
+                      f" {addr}.")
 
 
 # -- public objects -------------------------------------------------------------
@@ -476,6 +552,10 @@ class Dataset:
     @property
     def dtype(self) -> np.dtype:
         return self._node.dtype
+
+    @property
+    def attrs(self) -> AttributeManager:
+        return AttributeManager(self._node)
 
     def __array__(self, dtype=None, copy=None):
         arr = self._node.file._read_dataset(self._node)
@@ -780,69 +860,115 @@ class File(Group):
     # -- reading ---------------------------------------------------------------------
     def _read_superblock(self) -> _GroupNode:
         self._eof = os.fstat(self._fh.fileno()).st_size
-        head = self._read(0, min(self._eof, _SUPERBLOCK_SIZE))
+        head = self._read(0, min(self._eof, 96))
         if head[:8] != _SIGNATURE:
             raise OSError(f"{self.filename!r} is not an HDF5 file (no"
                           " signature at offset 0).")
         version = head[8]
-        if version not in (2, 3):
-            raise OSError(
-                f"{self.filename!r} has HDF5 superblock version {version}"
-                " (HDF5's default format, as h5py writes it unless asked for"
-                " the latest); h5lite reads superblock versions 2 and 3.")
-        if head[9] != 8 or head[10] != 8:
-            raise OSError("h5lite reads 8-byte offsets and lengths only.")
-        if lookup3(head[:44]) != _U32.unpack_from(head, 44)[0]:
-            raise OSError(f"Bad superblock checksum in {self.filename!r}.")
-        eoa = _U64.unpack_from(head, 28)[0]
+        if version in (0, 1):
+            # HDF5's default format: written by h5py, read only here.
+            if self.mode != "r":
+                raise OSError(
+                    f"{self.filename!r} is in HDF5's default format"
+                    f" (superblock version {version}); h5lite opens such"
+                    " files read only, and appends only to files it wrote.")
+            if head[13] != 8 or head[14] != 8:
+                raise OSError("h5lite reads 8-byte offsets and lengths only.")
+            p = 24 if version == 0 else 28
+            base, _, eoa, _ = struct.unpack_from("<4Q", head, p)
+            if base != 0:
+                raise OSError(f"{self.filename!r} has a base address of"
+                              f" {base}; h5lite reads base address 0 only.")
+            root_addr = _U64.unpack_from(head, p + 40)[0]
+        elif version in (2, 3):
+            if head[9] != 8 or head[10] != 8:
+                raise OSError("h5lite reads 8-byte offsets and lengths only.")
+            if lookup3(head[:44]) != _U32.unpack_from(head, 44)[0]:
+                raise OSError(f"Bad superblock checksum in {self.filename!r}.")
+            eoa = _U64.unpack_from(head, 28)[0]
+            root_addr = _U64.unpack_from(head, 36)[0]
+        else:
+            raise OSError(f"{self.filename!r} has HDF5 superblock version"
+                          f" {version}; h5lite reads versions 0 to 3.")
         if eoa > self._eof:
             raise OSError(f"Truncated HDF5 file {self.filename!r}: end of"
                           f" allocation {eoa} beyond its {self._eof} bytes.")
         self._eof = eoa
-        root = self._load(_U64.unpack_from(head, 36)[0])
+        root = self._load(root_addr)
         if not isinstance(root, _GroupNode):
             raise OSError("The HDF5 root object is not a group.")
         return root
 
     def _read_header(self, addr: int) -> Tuple[List[Tuple[int, bytes]], int]:
-        head = self._read(addr, 6)
-        if head[:4] != b"OHDR":
-            if head[0] == 1:
-                raise OSError(
-                    f"Version-1 object header at {addr} (HDF5's default"
-                    " format); h5lite reads version-2 headers only.")
+        """The messages of the object header at ``addr`` (version 1 or 2,
+        continuation blocks followed) and the size of its first chunk."""
+        head = self._read(addr, 16)
+        if head[:4] == b"OHDR":
+            flags = head[5]
+            pos = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+            width = 1 << (flags & 0x03)
+            prefix = self._read(addr, pos + width)
+            chunk = int.from_bytes(prefix[pos:pos + width], "little")
+            total = pos + width + chunk + 4
+            blocks = [(addr, total, pos + width)]
+            step = 6 if flags & 0x04 else 4
+        elif head[0] == 1:
+            total = 16 + _U32.unpack_from(head, 8)[0]
+            blocks = [(addr, total, 16)]
+            step = 8
+        else:
             raise OSError(f"No HDF5 object header at address {addr}.")
-        flags = head[5]
-        pos = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
-        width = 1 << (flags & 0x03)
-        prefix = self._read(addr, pos + width)
-        chunk = int.from_bytes(prefix[pos:pos + width], "little")
-        pos += width
-        total = pos + chunk + 4
-        raw = self._read(addr, total)
-        if lookup3(raw[:-4]) != _U32.unpack_from(raw, total - 4)[0]:
-            raise OSError(f"Bad object header checksum at {addr}.")
-        step = 6 if flags & 0x04 else 4
-        messages, p, end = [], pos, pos + chunk
-        while p + step <= end:
-            mtype, msize, mflags = raw[p], _U16.unpack_from(raw, p + 1)[0], \
-                raw[p + 3]
-            p += step
-            if mtype in _UNSUPPORTED_MESSAGES:
-                raise OSError(f"The object at {addr} uses"
-                              f" {_UNSUPPORTED_MESSAGES[mtype]}; h5lite"
-                              " does not read it.")
-            if mflags & 0x02:
-                raise OSError(f"The object at {addr} uses a shared (committed)"
-                              " message; h5lite does not read it.")
-            messages.append((mtype, raw[p:p + msize]))
-            p += msize
+        messages = []
+        while blocks:
+            start, size, p = blocks.pop(0)
+            raw = self._read(start, size)
+            end = size
+            if step != 8:  # version 2: every chunk ends with a checksum
+                if lookup3(raw[:-4]) != _U32.unpack_from(raw, size - 4)[0]:
+                    raise OSError(f"Bad object header checksum at {start}.")
+                end -= 4
+            while p + step <= end:
+                if step == 8:
+                    mtype, msize, mflags = struct.unpack_from("<HHB", raw, p)
+                else:
+                    mtype, msize = raw[p], _U16.unpack_from(raw, p + 1)[0]
+                    mflags = raw[p + 3]
+                body = raw[p + step:p + step + msize]
+                p += step + msize
+                if mtype == _CONTINUATION:
+                    where, length = struct.unpack_from("<2Q", body)
+                    if step == 8:
+                        blocks.append((where, length, 0))
+                    elif self._read(where, 4) != b"OCHK":
+                        raise OSError(f"No object header continuation at"
+                                      f" {where}.")
+                    else:
+                        blocks.append((where, length, 4))
+                    continue
+                if mtype in _UNSUPPORTED_MESSAGES:
+                    raise OSError(f"The object at {addr} uses"
+                                  f" {_UNSUPPORTED_MESSAGES[mtype]}; h5lite"
+                                  " does not read it.")
+                if mflags & 0x02:
+                    raise OSError(f"The object at {addr} uses a shared"
+                                  " (committed) message; h5lite does not read"
+                                  " it.")
+                messages.append((mtype, body))
         return messages, total
 
     def _load(self, addr: int) -> _Node:
+        try:
+            return self._load_node(addr)
+        except (struct.error, IndexError, ValueError,
+                UnicodeDecodeError) as exc:
+            # A torn read (a writer mid-flush) or a damaged file.
+            raise OSError(f"Malformed HDF5 object at {addr} in"
+                          f" {self.filename!r}: {exc}") from exc
+
+    def _load_node(self, addr: int) -> _Node:
         messages, size = self._read_header(addr)
         types = {m[0] for m in messages}
-        if _LINK_INFO in types:
+        if _LINK_INFO in types or _SYMBOL_TABLE in types:
             node = _GroupNode(self, addr, size)
             for mtype, body in messages:
                 if mtype == _LINK_INFO:
@@ -851,16 +977,15 @@ class File(Group):
                     if flags & 0x01:
                         node.next_order = _U64.unpack_from(body, q)[0]
                         q += 8
-                    if _U64.unpack_from(body, q)[0] != UNDEF:
-                        raise OSError(
-                            f"The group at {addr} uses dense link storage"
-                            " (a fractal heap); h5lite does not read it.")
                     node.track_order = bool(flags & 0x01)
+                    heap, names = struct.unpack_from("<2Q", body, q)
+                    if heap != UNDEF:
+                        for link in self._dense_links(heap, names):
+                            self._add_link(node, link, addr)
                 elif mtype == _LINK:
-                    name, order, target = self._decode_link(body, addr)
-                    node.links[name] = target
-                    if order is not None:
-                        node.order[name] = order
+                    self._add_link(node, body, addr)
+                elif mtype == _SYMBOL_TABLE:
+                    node.links.update(self._symbol_table(body))
                 elif mtype == _ATTRIBUTE:
                     node.attrs[self._attribute_name(body)] = body
                 elif mtype == _ATTRIBUTE_INFO:
@@ -883,8 +1008,14 @@ class File(Group):
                 elif mtype == _ATTRIBUTE_INFO:
                     self._check_attribute_info(body, addr)
             return node
-        raise OSError(f"The object at {addr} is neither a group with link"
-                      " messages nor a dataset.")
+        raise OSError(f"The object at {addr} is neither a group nor a"
+                      " dataset.")
+
+    def _add_link(self, node: _GroupNode, body: bytes, addr: int) -> None:
+        name, order, target = self._decode_link(body, addr)
+        node.links[name] = target
+        if order is not None:
+            node.order[name] = order
 
     @staticmethod
     def _decode_link(body: bytes, addr: int):
@@ -910,17 +1041,119 @@ class File(Group):
                           f" {name!r}; h5lite reads hard links only.")
         return name, order, _U64.unpack_from(body, q)[0]
 
+    # -- HDF5's default format: symbol tables, fractal heaps, B-trees ----------
+    def _symbol_table(self, body: bytes) -> Dict[str, int]:
+        """``{name: header address}`` of a symbol-table group: the leaves
+        (``SNOD`` nodes) of its version-1 group B-tree, in key order,
+        with names from its local heap."""
+        btree, heap = struct.unpack_from("<2Q", body)
+        head = self._read(heap, 32)
+        if head[:4] != b"HEAP":
+            raise OSError(f"No local heap at {heap}.")
+        size, _, data_addr = struct.unpack_from("<3Q", head, 8)
+        names = self._read(data_addr, size)
+        links: Dict[str, int] = {}
+        pending = [btree]
+        while pending:
+            node = pending.pop(0)
+            head = self._read(node, 24)
+            if head[:4] != b"TREE" or head[4] != 0:
+                raise OSError(f"No group B-tree node at {node}.")
+            level, used = head[5], _U16.unpack_from(head, 6)[0]
+            raw = self._read(node, 24 + 16 * used + 8)
+            children = [_U64.unpack_from(raw, 32 + 16 * i)[0]
+                        for i in range(used)]
+            if level:
+                pending[:0] = children
+                continue
+            for snod in children:
+                head = self._read(snod, 8)
+                if head[:4] != b"SNOD":
+                    raise OSError(f"No symbol-table node at {snod}.")
+                count = _U16.unpack_from(head, 6)[0]
+                raw = self._read(snod + 8, 40 * count)
+                for i in range(count):
+                    offset, target = struct.unpack_from("<2Q", raw, 40 * i)
+                    end = names.index(b"\x00", offset)
+                    links[names[offset:end].decode("utf-8")] = target
+        return links
+
+    def _dense_links(self, heap_addr: int, btree_addr: int) -> List[bytes]:
+        """The Link message bodies of a group with dense link storage: the
+        objects of its fractal heap whose IDs its name index holds."""
+        heap = _FractalHeap(self, heap_addr)
+        return [heap.object(record[-heap.id_len:])
+                for record in self._btree2_records(btree_addr)]
+
+    def _btree2_records(self, addr: int) -> List[bytes]:
+        """Every record of the version-2 B-tree at ``addr``."""
+        head = self._read(addr, 38)
+        if head[:4] != b"BTHD" or lookup3(head[:34]) != _U32.unpack_from(
+                head, 34)[0]:
+            raise OSError(f"No version-2 B-tree header at {addr}.")
+        node_size, rec_size, depth = struct.unpack_from("<IHH", head, 6)
+        root, root_count = struct.unpack_from("<QH", head, 16)
+        # Field widths of the internal nodes' child pointers, as the
+        # library derives them from the node size (H5B2__hdr_init).
+        max_leaf = (node_size - 10) // rec_size
+        count_size = _limit_enc_size(max_leaf)
+        cum_max, cum_size = [max_leaf], [0]
+        for d in range(1, depth + 1):
+            ptr = 8 + count_size + (cum_size[d - 1] if d > 1 else 0)
+            most = (node_size - 10 - ptr) // (rec_size + ptr)
+            cum_max.append((most + 1) * cum_max[d - 1] + most)
+            cum_size.append(_limit_enc_size(cum_max[d]))
+        records: List[bytes] = []
+
+        def walk(node: int, count: int, d: int) -> None:
+            ptr = 8 + count_size + (cum_size[d - 1] if d > 1 else 0)
+            size = 10 + count * rec_size + (ptr * (count + 1) if d else 0)
+            raw = self._read(node, size)
+            if raw[:4] != (b"BTIN" if d else b"BTLF"):
+                raise OSError(f"No version-2 B-tree node at {node}.")
+            records.extend(raw[6 + i * rec_size:6 + (i + 1) * rec_size]
+                           for i in range(count))
+            q = 6 + count * rec_size
+            for _ in range(count + 1 if d else 0):
+                child = _U64.unpack_from(raw, q)[0]
+                walk(child, int.from_bytes(raw[q + 8:q + 8 + count_size],
+                                           "little"), d - 1)
+                q += ptr
+
+        if root != UNDEF:
+            walk(root, root_count, depth)
+        return records
+
     @staticmethod
     def _decode_layout(node: _DatasetNode, body: bytes, addr: int) -> None:
-        version, cls = body[0], body[1]
-        if version not in (3, 4) or cls != 1:
-            what = {0: "compact", 2: "chunked", 3: "virtual"}.get(
-                cls, f"class {cls}")
+        """Contiguous or compact layouts of versions 1 to 4."""
+        version = body[0]
+        cls = body[2] if version < 3 else body[1]
+        if version not in (1, 2, 3, 4) or cls not in (0, 1):
+            what = {2: "chunked", 3: "virtual"}.get(cls, f"class {cls}")
             raise OSError(f"The dataset at {addr} has a {what} layout"
                           f" (version {version}); h5lite reads contiguous"
-                          " layouts only.")
-        node.data_addr = _U64.unpack_from(body, 2)[0]
-        node.data_size = _U64.unpack_from(body, 10)[0]
+                          " and compact layouts only.")
+        if version >= 3:
+            if cls == 1:
+                node.data_addr, node.data_size = struct.unpack_from(
+                    "<2Q", body, 2)
+            else:
+                n = _U16.unpack_from(body, 2)[0]
+                node.compact = body[4:4 + n]
+            return
+        # Versions 1 and 2: the sizes (4 bytes each; the last one is the
+        # element size) follow the address, which compact data lacks.
+        rank = body[1]
+        q = 8 + (8 if cls == 1 else 0)
+        dims = struct.unpack_from(f"<{rank}I", body, q)
+        if cls == 1:
+            node.data_addr = _U64.unpack_from(body, 8)[0]
+            node.data_size = int(np.prod(dims, dtype=np.int64))
+        else:
+            q += 4 * rank
+            n = _U32.unpack_from(body, q)[0]
+            node.compact = body[q + 4:q + 4 + n]
 
     @staticmethod
     def _check_attribute_info(body: bytes, addr: int) -> None:
@@ -930,25 +1163,31 @@ class File(Group):
                           " (a fractal heap); h5lite does not read it.")
 
     @staticmethod
-    def _attribute_sizes(body: bytes) -> Tuple[int, int, int]:
-        """Name, datatype and dataspace sizes of an Attribute message
-        (version 3: no padding; the name is null-terminated)."""
-        if body[0] != 3 or body[1] & 0x03:
+    def _attribute_layout(body: bytes) -> Tuple[int, int, int, int]:
+        """Offsets of an Attribute message's name, datatype, dataspace and
+        data. Version 1 pads each of the first three to 8 bytes; versions 2
+        and 3 do not (version 3 adds a character-set byte)."""
+        version = body[0]
+        if version not in (1, 2, 3) or (version > 1 and body[1] & 0x03):
             raise OSError(f"h5lite reads unshared attribute messages of"
-                          f" version 3, not version {body[0]}.")
-        return struct.unpack_from("<3H", body, 2)
+                          f" versions 1 to 3, not version {version}.")
+        sizes = struct.unpack_from("<3H", body, 2)
+        if version == 1:
+            sizes = [(n + 7) // 8 * 8 for n in sizes]
+        name = 8 if version == 1 else 8 + (version == 3)
+        dtype = name + sizes[0]
+        space = dtype + sizes[1]
+        return name, dtype, space, space + sizes[2]
 
     def _attribute_name(self, body: bytes) -> str:
-        name_size = self._attribute_sizes(body)[0]
-        return body[9:9 + name_size - 1].decode("utf-8")
+        name = self._attribute_layout(body)[0]
+        return body[name:body.index(b"\x00", name)].decode("utf-8")
 
     def _decode_attribute(self, body: bytes):
-        name_size, dtype_size, space_size = self._attribute_sizes(body)
-        q = 9 + name_size
-        dtype = _decode_dtype(body, q)[0]
-        shape = _decode_dataspace(body, q + dtype_size)
-        q += dtype_size + space_size
-        return self._decode_values(body[q:], dtype, shape)
+        _, dtype_at, space_at, data_at = self._attribute_layout(body)
+        dtype = _decode_dtype(body, dtype_at)[0]
+        shape = _decode_dataspace(body, space_at)
+        return self._decode_values(body[data_at:], dtype, shape)
 
     def _decode_values(self, data: bytes, dtype: np.dtype,
                        shape: Tuple[int, ...]):
@@ -969,10 +1208,13 @@ class File(Group):
     def _read_dataset(self, node: _DatasetNode) -> np.ndarray:
         if self._fh.closed:
             raise ValueError("The file is closed.")
-        if node.data_addr == UNDEF:
+        if node.compact is not None:
+            data = node.compact
+        elif node.data_addr == UNDEF:
             # Never written (zero-size): the fill value.
             return np.zeros(node.shape, dtype=node.dtype)
-        data = self._read(node.data_addr, node.data_size)
+        else:
+            data = self._read(node.data_addr, node.data_size)
         out = self._decode_values(data, node.dtype, node.shape)
         return np.asarray(out, dtype=node.dtype) if not node.shape else out
 

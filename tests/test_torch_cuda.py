@@ -520,3 +520,64 @@ def test_ell_solve_on_card(cuda_device, ell_device, tmp_path):
     assert solution.data_range[1] >= 2
     assert np.isfinite(solution.tdgl_data.psi).all()
     assert ttdgl.Solution.from_hdf5(solution.path).equals(solution)
+
+
+def test_resume_on_card_is_bitwise(mesh_device, cuda_device, tmp_path):
+    """A float32 run resumed on the card from its own checkpoint equals the
+    uninterrupted run on the card bit for bit, and the resumed run goes
+    through both kernels every step slot."""
+    inputs = dict(applied_vector_potential=0.5,
+                  terminal_currents=dict(source=3.0, drain=-3.0))
+
+    def run(solve_time, name, resume_from=None):
+        solver = ttdgl.TDGLSolver(mesh_device, ttdgl.SolverOptions(
+            solve_time=solve_time, dt_init=1e-4, dt_max=1e-2, save_every=20,
+            field_units="mT", current_units="uA",
+            output_file=str(tmp_path / name)),
+            torch_device=cuda_device, **inputs)
+        chunk_fn, calls = solver.chunk_fn, []
+
+        def counted(state):
+            calls.append(1)
+            return chunk_fn(state)
+
+        solver.chunk_fn = counted
+        step_kernels.reset_launch_counts()
+        solution = solver.solve(resume_from=resume_from)
+        # Step slots: every chunk call, robust re-runs included.
+        slots = (len(calls) + solver._failover_count) * solver.chunk_size
+        return solution, slots
+
+    full, _ = run(0.4, "full.h5")
+    part, _ = run(0.2, "part.h5")
+    resumed, slots = run(0.4, "resumed.h5", resume_from=part.path)
+    launches = [fn.launches for fn in step_kernels.KERNELS]
+    assert launches[1] == slots
+    assert launches[0] >= launches[1]
+    for name in ("psi", "mu"):
+        assert np.array_equal(getattr(resumed.tdgl_data, name),
+                              getattr(full.tdgl_data, name)), name
+    for key in ("step", "time", "dt"):
+        assert resumed.tdgl_data.state[key] == full.tdgl_data.state[key]
+
+
+def test_cpu_checkpoint_resumes_on_card(mesh_device, cuda_device, tmp_path):
+    """A float64 checkpoint written on the CPU resumes on the card and on
+    the CPU alike (1e-10 relative, equal steps)."""
+    opts = dict(dt_init=1e-3, adaptive=False, save_every=20, dtype="float64",
+                field_units="mT", current_units="uA")
+    inputs = dict(applied_vector_potential=0.5,
+                  terminal_currents=dict(source=3.0, drain=-3.0))
+    part = ttdgl.solve(mesh_device, ttdgl.SolverOptions(
+        solve_time=0.02, output_file=str(tmp_path / "part.h5"), **opts),
+        torch_device="cpu", **inputs)
+    out = {}
+    for where in ("cuda", "cpu"):
+        out[where] = ttdgl.solve(mesh_device, ttdgl.SolverOptions(
+            solve_time=0.04, output_file=str(tmp_path / f"{where}.h5"),
+            **opts), torch_device=where, resume_from=part.path, **inputs)
+    card, host = out["cuda"], out["cpu"]
+    assert card.tdgl_data.state["step"] == host.tdgl_data.state["step"] > 21
+    for name in ("psi", "mu", "supercurrent", "normal_current"):
+        a, b = getattr(card.tdgl_data, name), getattr(host.tdgl_data, name)
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max(), name

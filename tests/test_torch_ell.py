@@ -25,7 +25,11 @@ two probes. The same host-built inputs go through both packages:
   ``tdgl_tpu.Solution.from_hdf5``, and its ``checkpoint`` group has the
   JAX file's keys and attributes (``backend`` ``"ell"``);
 * ``convert.solver_state_to_torch`` takes the JAX state or its
-  ``export_state_arrays`` dict.
+  ``export_state_arrays`` dict;
+* the port resumes the ``checkpoint`` of the JAX package's ``solve()`` file
+  20 steps on, and agrees with its resume of its own file to 1e-10 with
+  equal steps; the JAX file loads in the port with the JAX package's
+  fields and seeds a port ``solve()``.
 
 Past about 20 adaptive steps the adaptive dt of this small film oscillates
 (0.003 <-> 0.06) and amplifies rounding differences by ~10x per step in
@@ -463,3 +467,40 @@ def test_solver_state_converter_takes_export_dict(devices):
         else:
             assert torch.equal(a, b), name
     assert int(from_export.step) == 5 and from_export.psi.shape[-1] == 2
+
+
+def test_resume_and_seed_from_jax_file(solved, tmp_path):
+    """Both packages' files of ``solved`` resumed by the port 20 fixed
+    steps on agree to 1e-10 with equal steps; the JAX file loads in the
+    port with the JAX package's fields and seeds a port run."""
+    device = solved["torch"].device
+    kw = dict(applied_vector_potential=0.5, terminal_currents=CURRENTS,
+              torch_device="cpu")
+
+    def options(solve_time, name):
+        return ttdgl.SolverOptions(
+            solve_time=solve_time, dt_init=1e-3, adaptive=False,
+            save_every=20, dtype="float64",
+            output_file=str(tmp_path / name), field_units="mT",
+            current_units="uA")
+
+    out = {name: ttdgl.solve(device, options(0.08, f"{name}.h5"),
+                             resume_from=solved[name].path, **kw)
+           for name in ("jax", "torch")}
+    j, t = out["jax"], out["torch"]
+    assert j.tdgl_data.state["step"] == t.tdgl_data.state["step"] == 81
+    for name in ("psi", "mu", "supercurrent", "normal_current"):
+        assert _rel(getattr(j.tdgl_data, name),
+                    getattr(t.tdgl_data, name)) < 1e-10, name
+    ours = ttdgl.Solution.from_hdf5(solved["jax"].path)
+    theirs = jtdgl.Solution.from_hdf5(solved["jax"].path)
+    for name in ("psi", "mu", "supercurrent", "normal_current",
+                 "induced_vector_potential", "applied_vector_potential",
+                 "epsilon"):
+        assert np.array_equal(getattr(ours.tdgl_data, name),
+                              getattr(theirs.tdgl_data, name)), name
+    assert ours.tdgl_data.state["time"] == theirs.tdgl_data.state["time"]
+    seeded = ttdgl.solve(device, options(0.002, "seeded.h5"),
+                         seed_solution=ours, **kw)
+    seeded.solve_step = 0
+    assert np.array_equal(seeded.tdgl_data.psi, theirs.tdgl_data.psi)

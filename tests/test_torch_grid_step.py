@@ -167,7 +167,8 @@ def test_unported_paths_raise():
     assert state.psi.device == torch.device("cpu")
     solver = ttdgl.TDGLSolver(device, ttdgl.SolverOptions(**opts),
                               torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="resume"):
+    # Resume is ported: it opens the checkpointed run's file.
+    with pytest.raises(FileNotFoundError, match="previous.h5"):
         solver.solve(resume_from="previous.h5")
     with pytest.raises(NotImplementedError, match="visualization"):
         ttdgl.TDGLSolver(device, ttdgl.SolverOptions(monitor=True, **opts),

@@ -2,10 +2,17 @@
 
 Files written by h5lite must open in h5py with the same names, dtypes,
 shapes, values and attributes, for every type the output schema uses;
-h5lite must read back what it wrote, handle ``r+`` appends and the
-replacement of a group at every flush, and refuse files in HDF5's
-default format with a clear ``OSError``. h5py is only the oracle here:
-the port never imports it.
+h5lite must read back what it wrote and handle ``r+`` appends and the
+replacement of a group at every flush. Files that h5py writes in HDF5's
+default format (as ``tdgl_tpu`` writes its output) must read in h5lite
+equal to h5py: every type, 0-d and n-d, as datasets and attributes, empty
+arrays, variable-length strings of 0, 1 and 10,000 bytes, symbol-table
+groups whose B-tree has two levels (300 links), a creation-ordered group
+with dense link storage (300 links), an object header with continuation
+blocks, a compact dataset, a file still open in its writer after a flush,
+and random small trees; such a file opened ``"r+"``, and chunked or
+compressed datasets, raise ``OSError``. h5py is only the oracle here: the
+port never imports it.
 """
 
 import os
@@ -209,6 +216,8 @@ def test_unstorable_attributes_raise_type_error(tmp_path, value):
 
 @pytest.mark.parametrize("kind", ["default_format", "chunked", "not_hdf5"])
 def test_reader_rejects_other_formats(tmp_path, kind):
+    # h5lite reads HDF5's default format but appends only to its own files:
+    # a default-format file opened "r+" raises.
     path = str(tmp_path / f"{kind}.h5")
     if kind == "not_hdf5":
         with open(path, "wb") as fh:
@@ -224,8 +233,9 @@ def test_reader_rejects_other_formats(tmp_path, kind):
     expected = {"default_format": "superblock version 0",
                 "chunked": "h5lite does not read",
                 "not_hdf5": "not an HDF5 file"}[kind]
+    mode = "r+" if kind == "default_format" else "r"
     with pytest.raises(OSError, match=expected):
-        with h5lite.File(path, "r") as f:
+        with h5lite.File(path, mode) as f:
             np.asarray(f["x"])
 
 
@@ -262,3 +272,173 @@ def test_random_arrays_round_trip(tmp_path_factory, dtype, shape, seed):
         with opener(path, "r") as f:
             assert _same(f["g/x"][()], value)
             assert _same(f["g"].attrs["x"], value)
+
+
+# -- HDF5's default format, as h5py writes it ------------------------------------
+def _assert_same_tree(path):
+    """Every group, dataset and attribute of ``path`` reads in h5lite as in
+    h5py: names (in h5py's order), dtypes, shapes and values."""
+    with h5py.File(path, "r") as ref, h5lite.File(path, "r") as f:
+        def compare(r, g):
+            assert sorted(g.attrs) == sorted(r.attrs), r.name
+            for key in r.attrs:
+                want = r.attrs[key]
+                assert type(g.attrs[key]) is type(want), (r.name, key)
+                assert _same(g.attrs[key], want), (r.name, key)
+            if isinstance(r, h5py.Dataset):
+                want = r[()]
+                if r.dtype.kind == "O":  # h5py reads vlen strings as bytes
+                    want = np.array([v.decode() for v in np.ravel(want)],
+                                    dtype=h5lite.VLEN_STR).reshape(r.shape)
+                    assert np.array_equal(g[()], want), r.name
+                else:
+                    assert g.shape == r.shape and g.dtype == r.dtype, r.name
+                    assert _same(g[()], want), r.name
+                return
+            assert list(g) == list(r), r.name
+            for key in r:
+                compare(r[key], g[key])
+
+        compare(ref, f)
+
+
+@pytest.fixture(scope="module")
+def default_format(tmp_path_factory):
+    """A file in h5py's default format (superblock 0, version-1 headers)."""
+    path = str(tmp_path_factory.mktemp("h5py") / "default.h5")
+    with h5py.File(path, "w") as f:
+        for name, value in CASES.items():
+            f[name] = value
+            f.attrs[name] = value
+        f.attrs.update(ATTRS)
+        strings = f.create_group("strings")
+        for n in (0, 1, 10_000):
+            strings.attrs[f"s{n}"] = "\u00e9" * (n // 2) + "x" * (n % 2)
+        strings["vlen"] = np.array(["", "a", "y" * 10_000],
+                                   dtype=h5py.string_dtype())
+        plain = f.create_group("plain")
+        for k in range(300):
+            plain.create_group(str(k)).attrs["k"] = k
+        ordered = f.create_group("ordered", track_order=True)
+        for k in range(300):
+            ordered.create_group(str(299 - k))["x"] = np.full(2, k)
+        # Attributes added one at a time overflow the header into
+        # continuation blocks.
+        many = f.create_group("many_attrs")
+        for k in range(40):
+            many.attrs[f"a{k}"] = np.arange(k, dtype=np.float32)
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_layout(h5py.h5d.COMPACT)
+        space = h5py.h5s.create_simple((5,))
+        ds = h5py.h5d.create(f.id, b"compact", h5py.h5t.NATIVE_DOUBLE, space,
+                             dcpl=dcpl)
+        ds.write(h5py.h5s.ALL, h5py.h5s.ALL, np.arange(5.0))
+    with open(path, "rb") as fh:
+        assert fh.read(9)[8] == 0  # superblock version 0
+    return path
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_default_format_types(default_format, name):
+    want = CASES[name]
+    with h5lite.File(default_format, "r") as f:
+        assert f[name].shape == np.shape(want)
+        assert f[name].dtype == np.asarray(want).dtype
+        assert _same(f[name][()], want)
+        assert _same(f.attrs[name], want)
+
+
+def test_default_format_tree(default_format):
+    _assert_same_tree(default_format)
+    with h5lite.File(default_format, "r") as f:
+        assert f["strings"].attrs["s10000"] == "\u00e9" * 5000
+        assert f["strings"].attrs["s0"] == ""
+        assert f["strings/vlen"][()][2] == "y" * 10_000
+        assert list(f["ordered"]) == [str(299 - k) for k in range(300)]
+        assert np.array_equal(f["ordered/0/x"][()], [299, 299])
+        assert sorted(f["plain"], key=int) == [str(k) for k in range(300)]
+        assert f["plain/271"].attrs["k"] == 271
+        assert len(f["many_attrs"].attrs) == 40
+        assert np.array_equal(f["compact"][()], np.arange(5.0))
+
+
+def test_default_format_while_writer_holds_it(tmp_path):
+    """A file that h5py flushed and still holds open (as after a SIGKILL
+    between flushes) reads as h5py reads it."""
+    path = str(tmp_path / "open.h5")
+    copy = str(tmp_path / "copy.h5")
+    f = h5py.File(path, "w")
+    data = f.create_group("data", track_order=True)
+    for k in range(12):
+        data.create_group(str(k))["psi"] = np.full(50, k, np.complex64)
+    ck = f.create_group("checkpoint")
+    ck["psi_r"] = np.arange(8.0)
+    ck.attrs.update(backend="grid", step=7, time=0.5, done=False)
+    f.flush()
+    shutil.copy(path, copy)  # as if the writer died here
+    with h5lite.File(path, "r") as live:  # h5lite takes no lock
+        assert live["checkpoint"].attrs["step"] == 7
+        assert list(live["data"]) == [str(k) for k in range(12)]
+    f.close()
+    _assert_same_tree(copy)
+
+
+@pytest.mark.parametrize("kind", ["chunked", "gzip", "r_plus",
+                                  "committed_type", "dense_attrs"])
+def test_default_format_unsupported_raises(tmp_path, kind):
+    path = str(tmp_path / f"{kind}.h5")
+    with h5py.File(path, "w") as f:
+        if kind == "chunked":
+            f.create_dataset("x", data=np.ones(100), chunks=(10,))
+        elif kind == "gzip":
+            f.create_dataset("x", data=np.ones(100), compression="gzip")
+        elif kind == "committed_type":
+            f["t"] = np.dtype("f8")
+            f.create_dataset("x", (3,), dtype=f["t"])
+        elif kind == "dense_attrs":
+            # Creation-ordered attributes past 8 move to a fractal heap.
+            group = f.create_group("x", track_order=True)
+            for k in range(20):
+                group.attrs[f"a{k}"] = k
+        else:
+            f["x"] = np.ones(3)
+    expected = {"chunked": "chunked layout", "gzip": "h5lite does not read",
+                "r_plus": "opens such files read only",
+                "committed_type": "shared \\(committed\\)",
+                "dense_attrs": "dense attribute storage"}[kind]
+    with pytest.raises(OSError, match=expected):
+        with h5lite.File(path, "r+" if kind == "r_plus" else "r") as f:
+            np.asarray(f["x"])
+
+
+_NAMES = st.text("abcxyz019", min_size=1, max_size=4)
+_LEAVES = st.one_of(
+    st.integers(-2**40, 2**40), st.floats(allow_nan=False), st.booleans(),
+    st.text(st.characters(blacklist_categories=("Cs",),
+                          blacklist_characters="\x00"), max_size=20),
+    st.lists(st.floats(allow_nan=False, width=32), max_size=5).map(
+        lambda v: np.asarray(v, np.float32)),
+    st.lists(st.integers(-100, 100), min_size=1, max_size=6).map(
+        lambda v: np.asarray(v, np.int64)))
+_TREES = st.recursive(
+    _LEAVES, lambda kids: st.dictionaries(_NAMES, kids, max_size=5),
+    max_leaves=12)
+
+
+@settings(max_examples=15, deadline=None, derandomize=True)
+@given(tree=st.dictionaries(_NAMES, _TREES, max_size=5),
+       ordered=st.booleans())
+def test_random_default_format_trees(tmp_path_factory, tree, ordered):
+    path = str(tmp_path_factory.mktemp("hyp0") / "t.h5")
+
+    def write(group, node):
+        for name, value in node.items():
+            if isinstance(value, dict):
+                write(group.create_group(name, track_order=ordered), value)
+            else:
+                group[name] = value
+                group.attrs[name] = value
+
+    with h5py.File(path, "w") as f:
+        write(f, tree)
+    _assert_same_tree(path)

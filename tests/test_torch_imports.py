@@ -72,7 +72,8 @@ def test_package_has_modules(trees):
                      "ops/fft_screening.py", "ops/screening.py",
                      "sources/scaling.py", "sources/loop.py",
                      "sources/constant.py", "parameter.py",
-                     "fv/operators.py", "models/gtdgl.py", "ops/amg.py"):
+                     "fv/operators.py", "models/gtdgl.py", "ops/amg.py",
+                     "utils/pickles.py"):
         assert required in names
 
 

@@ -23,7 +23,14 @@ standard output files:
   ``solve_time`` cut from 3 to 0.3 and ``save_every`` from 100 to 20;
 * (e) a port ``solve()`` (with a thermalization stage) in a process
   where h5py, cloudpickle, tqdm, matplotlib, jax and tdgl_tpu cannot be
-  imported.
+  imported;
+* (f) the JAX file of (a): h5lite reads it equal to h5py, the port's
+  ``Solution.from_hdf5`` loads it with the JAX package's fields, dynamics
+  and callables, the port resumes its checkpoint 20 steps on and agrees
+  with the port's resume of its own file of (a) to 1e-10 with equal steps,
+  and, in a process where jax, tdgl_tpu, h5py and cloudpickle cannot be
+  imported, the file loads and seeds a port ``solve()`` without importing
+  ``tdgl_tpu``.
 """
 
 import dataclasses
@@ -369,6 +376,119 @@ def test_solve_without_optional_packages(tmp_path):
                OPENBLAS_NUM_THREADS="1")
     result = subprocess.run(
         [sys.executable, "-c", _NO_EXTRAS, str(tmp_path / "out.h5")],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.strip().startswith("ok"), result.stdout
+
+
+# -- (f) the JAX package's output file in the port ---------------------------
+def _tdgl_fields(data):
+    return {f: np.asarray(getattr(data, f))
+            for f in ("psi", "mu", "supercurrent", "normal_current",
+                      "induced_vector_potential", "applied_vector_potential",
+                      "epsilon")}
+
+
+def test_port_loads_jax_output_file(f64_pair):
+    from test_torch_h5 import _assert_same_tree
+
+    path = f64_pair["jax"].path
+    _assert_same_tree(path)
+    theirs = jtdgl.Solution.from_hdf5(path)
+    ours = ttdgl.Solution.from_hdf5(path)
+    assert ours.data_range == theirs.data_range == (0, 5)
+    for step in (0, 5):
+        ours.solve_step = theirs.solve_step = step
+        got = _tdgl_fields(ours.tdgl_data)
+        want = _tdgl_fields(theirs.tdgl_data)
+        for name in want:
+            assert np.array_equal(got[name], want[name]), (step, name)
+        for key in ("step", "time", "dt"):
+            assert ours.tdgl_data.state[key] == theirs.tdgl_data.state[key]
+    for name in ("dt", "mu", "theta"):
+        assert np.array_equal(getattr(ours.dynamics, name),
+                              getattr(theirs.dynamics, name)), name
+    assert np.array_equal(ours.times, theirs.times)
+    assert (dataclasses.replace(ours.options, output_file=None)
+            == dataclasses.replace(f64_pair["torch"].options,
+                                   output_file=None))
+    assert ours.device == f64_pair["torch"].device
+    # The JAX package's pickles load as the port's objects.
+    assert ours.applied_vector_potential == ttdgl.ConstantField(
+        0.5, field_units="mT", length_units="um")
+    assert ours.terminal_currents == CURRENTS
+    assert np.array_equal(ours.disorder_epsilon(np.zeros((3, 2))),
+                          np.ones(3))
+
+
+def test_resume_from_jax_checkpoint(f64_pair, tmp_path):
+    """The port continues the JAX run as it continues its own run of the
+    same fixture: 20 more fixed steps, 1e-10, equal steps."""
+    device = f64_pair["torch"].device
+    out = {}
+    for name in ("jax", "torch"):
+        options = ttdgl.SolverOptions(
+            solve_time=0.12, dt_init=1e-3, adaptive=False, save_every=25,
+            dtype="float64", output_file=str(tmp_path / f"{name}.h5"),
+            field_units="mT", current_units="uA")
+        out[name] = ttdgl.solve(
+            device, options, applied_vector_potential=0.5,
+            terminal_currents=CURRENTS, torch_device="cpu",
+            resume_from=f64_pair[name].path)
+    j, t = out["jax"], out["torch"]
+    assert j.tdgl_data.state["step"] == t.tdgl_data.state["step"] == 121
+    assert len(j.dynamics.dt) == len(t.dynamics.dt) == 20
+    for name, ref in _tdgl_fields(t.tdgl_data).items():
+        assert _rel(getattr(j.tdgl_data, name), ref) < 1e-10, name
+    for name in ("dt", "mu", "theta"):
+        assert _rel(getattr(j.dynamics, name),
+                    getattr(t.dynamics, name)) < 1e-10, name
+
+
+_JAX_FILE_WITHOUT_JAX = textwrap.dedent("""
+    import sys
+    for name in ("h5py", "cloudpickle", "jax", "tdgl_tpu"):
+        sys.modules[name] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import tdgl_tpu_torch as ttdgl
+
+    seed = ttdgl.Solution.from_hdf5(sys.argv[1])
+    assert seed.data_range == (0, 5), seed.data_range
+    assert seed.terminal_currents == {"source": 5.0, "drain": -5.0}
+    assert isinstance(seed.applied_vector_potential, ttdgl.Parameter)
+    # The JAX package stored its uniform disorder by value with cloudpickle,
+    # which this process lacks: reading it raises, the rest loads.
+    try:
+        seed.disorder_epsilon
+    except RuntimeError as exc:
+        assert "cloudpickle" in str(exc), exc
+    else:
+        raise AssertionError("a cloudpickle stream loaded without it")
+    options = ttdgl.SolverOptions(solve_time=0.005, dt_init=1e-3,
+                                  adaptive=False, save_every=5,
+                                  dtype="float64", output_file=sys.argv[2],
+                                  field_units="mT", current_units="uA")
+    solution = ttdgl.solve(seed.device, options, applied_vector_potential=0.5,
+                           terminal_currents=seed.terminal_currents,
+                           seed_solution=seed, torch_device="cpu")
+    solution.solve_step = 0
+    assert np.array_equal(solution.tdgl_data.psi, seed.tdgl_data.psi)
+    assert "tdgl_tpu" not in sys.modules or sys.modules["tdgl_tpu"] is None
+    loaded = [m for m in sys.modules if m.startswith("tdgl_tpu.")]
+    assert not loaded, loaded
+    print("ok", solution.data_range)
+""")
+
+
+def test_jax_file_seeds_without_jax(f64_pair, tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    result = subprocess.run(
+        [sys.executable, "-c", _JAX_FILE_WITHOUT_JAX, f64_pair["jax"].path,
+         str(tmp_path / "seeded.h5")],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=300)
     assert result.returncode == 0, result.stderr[-3000:]
