@@ -85,12 +85,38 @@ the robust program. Phases (each prints its seconds):
     states; the resumed and seeded structured runs launch each kernel once
     per step slot (psi more only on robust retries), the ELL runs neither.
 
+13. batched parameter sweeps (``tdgl_tpu_torch.parallel.solve_sweep``, one
+    batch of members on the card): both kernels at 8 members in one
+    launch on the (256, 384) film, float32 and float64, raw and factored
+    links, each member against the plain version on its own inputs; a
+    1-member batch equal bit for bit to a single call; ``ok`` per member
+    (members 1 and 5 fail, then all pass); the batched kernels' device
+    ms against 8 single calls and their bytes bound. Then 8-member field
+    and callable-bias current sweeps on the structured film (float32, the
+    robust program, ``--sweep-steps`` steps per member in chunks of
+    ``--sweep-chunk``) and the same sweeps at 1 member over the same
+    steps: members x steps/s, launches and host reads per step slot, no
+    member failed; away from the terminals, ``|psi|`` min < 0.9 on the
+    strongest member and its mean ``|psi|^2`` below the weakest's; the
+    final voltage growing with the bias (the strongest member's above
+    twice the weakest's, as ``tests/test_parallel.py`` checks), with
+    members 1, 2 and 7 each run alone as witnesses that each member runs
+    its own bias (voltage traces within ``WITNESS_RTOL`` over the first
+    ``WITNESS_STEPS`` steps; later they part, as rounding grows in the
+    film's phase-slip regime, so neighbouring final voltages may cross); a
+    float64 3-member
+    sweep on the small
+    film against single robust runs (``chunk_failover="off"``) to 1e-10
+    with equal step counts; and an 8-member ELL field sweep on the
+    Delaunay film of phase 11 (``--sweep-ell-steps`` steps) with its
+    members x steps/s and host reads per step (no kernel launches).
+
 Phase 5 also holds float64 ELL chunks on a small Delaunay mesh on the card
 against the CPU (static, traced ramp, screened ``xla``; 1e-10, equal step,
 retry, CG and screening iteration counts) and runs a float32 ELL chunk
 twice (bitwise equal).
 
-Phases 6, 7, 9, 10 and 12 each reset the kernels' launch counters just before
+Phases 6, 7, 9, 10, 12 and 13 each reset the kernels' launch counters just before
 each of their runs and read them just after; each count must match the
 step slots that run executed (chunks times chunk size, robust re-runs
 included). The last two stdout lines are the kernels' JSON record and
@@ -99,7 +125,8 @@ GPU); ``--chunk`` and ``--solve-time`` resize phases 6 and 7,
 ``--ramp-time``/``--ramp-chunk`` phase 9, ``--screen-time``/
 ``--screen-chunk`` phase 10, ``--ell-time``/``--ell-chunk``/
 ``--ell-screen-steps`` phase 11, ``--resume-time``/``--resume-chunk``
-phase 12.
+phase 12, ``--sweep-steps``/``--sweep-chunk``/``--sweep-ell-steps`` phase
+13.
 """
 
 import argparse
@@ -117,6 +144,12 @@ import time
 # float64 1e-12 relative.
 F32_TOL = 3e-5
 F64_TOL = 1e-12
+# Phase 13's current-sweep witnesses (float32, one member alone against
+# the same member in the batch): their voltage traces over the first
+# WITNESS_STEPS steps, relative to the largest |voltage| alone. Members
+# 1 and 2 differ in bias by half, and their traces by far more than this.
+WITNESS_STEPS = 20
+WITNESS_RTOL = 1e-2
 
 # The bound from shapes: an NVIDIA H100 SXM's published HBM rate and
 # float32 peak outside the tensor cores (the operations of both kernels
@@ -1324,6 +1357,372 @@ def run_resume_path(pkg, args, device, options, inputs, tmp):
                 bitwise=bitwise, seeded_step0_equal=seed_equal, runs=runs)
 
 
+class SweepBias:
+    """Phase 13's callable bias: ``peak`` into the source (out of the
+    drain), ramping from half of it to all of it over ``t_ramp``; a plain
+    callable of a float ``t`` (``solve_sweep`` evaluates it for each member
+    at its own time at every chunk boundary)."""
+
+    def __init__(self, peak: float, t_ramp: float):
+        self.peak, self.t_ramp = float(peak), float(t_ramp)
+
+    def __call__(self, t):
+        ramp = min(max(float(t) / self.t_ramp, 0.0), 1.0)
+        current = self.peak * (0.5 + 0.5 * ramp)
+        return {"source": current, "drain": -current}
+
+
+def member_inputs(solver, B: int, dtype, sten):
+    """B members' seeded psi and mu (``(B, rows, cols)``), shared epsilon
+    and dA/dt, per-member Neumann planes and dt, and per-member links of
+    the applied potential scaled from 0.25 to 2 (a field sweep), on
+    ``sten``, in ``dtype``."""
+    import numpy as np
+    import torch
+
+    from tdgl_tpu_torch.models import gtdgl_stencil as gs
+
+    xs = [random_inputs(solver, seed=20 + b) for b in range(B)]
+    x = {k: torch.stack([m[k] for m in xs]).to(dtype)
+         for k in ("pr", "pi", "mu")}
+    x["eps"], x["dA"] = xs[0]["eps"].to(dtype), xs[0]["dA"].to(dtype)
+    rng = np.random.default_rng(19)
+    x["neumann"] = torch.tensor(rng.normal(size=x["pr"].shape) * 0.1,
+                                dtype=dtype, device="cuda")
+    x["dt"] = torch.tensor([1e-2 * (1 + b / B) for b in range(B)],
+                           dtype=dtype, device="cuda")
+    scales = torch.linspace(0.25, 2.0, B, dtype=dtype, device="cuda")
+    A = (solver._initial_state().A_applied.to(dtype)[None]
+         * scales[:, None, None, None, None])
+    links = {"raw": gs.edge_link_phases(sten, A),
+             "factored": gs.factor_link_phases(sten, A)}
+    return x, links
+
+
+def check_batched_kernels(solver, B: int, cycles_per_ms: float):
+    """Phase 13's kernel checks and timings (see the module docstring).
+    Returns ``{kernel: record}`` of the float32 factored batch."""
+    import torch
+
+    from tdgl_tpu_torch.ops import step_kernels as sk
+
+    g, u = solver.cfg.gamma, solver.cfg.u
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        sten = solver.sten._replace(**{
+            f: t.to(dtype) for f, t in solver.sten._asdict().items()
+            if t.is_floating_point()})
+        x, links = member_inputs(solver, B, dtype, sten)
+        f64 = dtype == torch.float64
+        for form, U in links.items():
+            ops = sk.StepOperands(sten, U, x["dA"], x["neumann"])
+            psi_in = (x["pr"], x["pi"], x["mu"], x["eps"], x["dt"])
+            before = [fn.launches for fn in sk.KERNELS]
+            got = ops.psi_update(g, u, *psi_in)
+            rhs = ops.poisson_rhs(x["pr"], x["pi"])
+            assert [fn.launches - b for fn, b in
+                    zip(sk.KERNELS, before)] == [1, 1]
+            psi_err = rhs_err = 0.0
+            for b in range(B):
+                U_b = type(U)(*(None if f is None else f[b] for f in U))
+                ref = sk.plain_psi_update(g, u, sten, U_b, x["pr"][b],
+                                          x["pi"][b], x["mu"][b], x["eps"],
+                                          x["dt"][b])
+                rhs_ref = sk.plain_poisson_rhs(sten, U_b, x["pr"][b],
+                                               x["pi"][b], x["dA"],
+                                               x["neumann"][b])
+                assert bool(got[3][b]) == bool(ref[3]), (form, b)
+                scale = max(max(r.abs().max().item() for r in ref[:3]), 1.0)
+                e = max((a[b] - r).abs().max().item()
+                        for a, r in zip(got[:3], ref[:3]))
+                psi_err = max(psi_err, e / scale if f64 else e)
+                e = (rhs[b] - rhs_ref).abs().max().item()
+                rhs_err = max(rhs_err, e / max(rhs_ref.abs().max().item(),
+                                               1.0))
+            label = f"{'float64' if f64 else 'float32'} {form}"
+            log(f"  B={B} {label:16s} per member vs plain: psi max|err|"
+                f" {psi_err:.3e}{' (rel)' if f64 else ''}, rhs max|err|/scale"
+                f" {rhs_err:.3e}; ok {got[3].tolist()}")
+            assert psi_err < (F64_TOL if f64 else F32_TOL), label
+            assert rhs_err < (F64_TOL if f64 else F32_TOL), label
+            if f64:
+                continue
+            if form == "factored":
+                fac = dict(ops=ops, U=U, x=x, sten=sten, psi_in=psi_in,
+                           err={"fused_psi_update": psi_err,
+                                "fused_poisson_rhs": rhs_err})
+            # One member through the batched entry == a single call.
+            U0 = type(U)(*(None if f is None else f[0] for f in U))
+            one = sk.StepOperands(sten, U0, x["dA"], x["neumann"][0])
+            single = one.psi_update(g, u, x["pr"][0], x["pi"][0],
+                                    x["mu"][0], x["eps"], x["dt"][0])
+            batch1 = one.psi_update(g, u, x["pr"][:1], x["pi"][:1],
+                                    x["mu"][:1], x["eps"], x["dt"][:1])
+            same = all(torch.equal(a, b[0]) for a, b in zip(single, batch1))
+            same &= torch.equal(one.poisson_rhs(x["pr"][0], x["pi"][0]),
+                                one.poisson_rhs(x["pr"][:1],
+                                                x["pi"][:1])[0])
+            log(f"  B=1 batch == single call, bit for bit ({form}): {same}")
+            assert same, form
+    # ok per member: members 1 and 5 fail, then every member passes.
+    ops, x = fac["ops"], fac["x"]
+    bad = torch.zeros(B, dtype=torch.bool, device="cuda")
+    bad[[1, 5]] = True
+    dt = torch.where(bad, 50.0, 1e-5).float()
+    mu = x["mu"] * torch.where(bad, 40.0, 1.0)[:, None, None]
+    ok = ops.psi_update(g, u, x["pr"], x["pi"], mu, x["eps"], dt)[3].tolist()
+    ok_plain = sk.plain_psi_update(g, u, ops.sten, ops.U, x["pr"], x["pi"],
+                                   mu, x["eps"], dt)[3].tolist()
+    ok_pass = ops.psi_update(g, u, x["pr"], x["pi"], x["mu"], x["eps"],
+                             torch.full((B,), 1e-5, device="cuda"))[3]
+    log(f"  ok per member (members 1 and 5 fail): {ok} (plain {ok_plain});"
+        f" then all passing: {ok_pass.tolist()}")
+    assert ok == ok_plain == [True, False, True, True, True, False, True,
+                              True], ok
+    assert ok_pass.tolist() == [True] * B
+    # Timings: the batch (factored, per-member links) vs B single calls.
+    sten, U, psi_in = fac["sten"], fac["U"], fac["psi_in"]
+    singles = [sk.StepOperands(sten, type(U)(*(f[b] for f in U)), x["dA"],
+                               x["neumann"][b]) for b in range(B)]
+    calls = {
+        "fused_psi_update": (
+            lambda: ops.psi_update(g, u, *psi_in),
+            lambda: [s.psi_update(g, u, x["pr"][b], x["pi"][b], x["mu"][b],
+                                  x["eps"], x["dt"][b])
+                     for b, s in enumerate(singles)],
+            lambda: sk.plain_psi_update(g, u, sten, U, *psi_in),
+            list(psi_in) + [sten.w, sten.sym_diag, sten.inv_area,
+                            sten.fixed_mask, sten.valid] + list(U),
+            list(ops.psi_update(g, u, *psi_in))),
+        "fused_poisson_rhs": (
+            lambda: ops.poisson_rhs(x["pr"], x["pi"]),
+            lambda: [s.poisson_rhs(x["pr"][b], x["pi"][b])
+                     for b, s in enumerate(singles)],
+            lambda: sk.plain_poisson_rhs(sten, U, x["pr"], x["pi"], x["dA"],
+                                         x["neumann"]),
+            [x["pr"], x["pi"], sten.inv_len, sten.dual, x["dA"],
+             sten.inv_area, x["neumann"]] + list(U),
+            [ops.poisson_rhs(x["pr"], x["pi"])]),
+    }
+    for name, (kernel, single, plain, ins, outs) in calls.items():
+        bound, by = bound_ms(name, "factored", ins, outs)
+        rec = dict(members=B, max_abs_err=fac["err"][name],
+                   ms=queued_ms(kernel, 200, cycles_per_ms),
+                   single_calls_ms=queued_ms(single, 25, cycles_per_ms),
+                   plain_ms=queued_ms(plain, 1, cycles_per_ms, repeats=11),
+                   bound_ms=bound, bound_by=by,
+                   bytes=sum(t.numel() * t.element_size()
+                             for t in ins + outs))
+        rec["ms_per_member"] = rec["ms"] / B
+        rec["bound_share"] = bound / rec["ms"]
+        log(f"  float32 factored {name} at B={B}: device {rec['ms']:.5f} ms"
+            f" per launch ({rec['ms_per_member']:.5f} per member), {B}"
+            f" single calls {rec['single_calls_ms']:.5f} ms, plain"
+            f" {rec['plain_ms']:.5f} ms; bound {bound:.5f} ms ({by},"
+            f" {rec['bytes']} bytes), share {100 * rec['bound_share']:.1f}%")
+        out[name] = rec
+    return out
+
+
+def run_sweep(pkg, device, options, label, **kwargs):
+    """One ``solve_sweep`` on the card: its result, wall seconds, kernel
+    launches and host reads (counted from 0 just before it), step slots
+    and members x steps/s."""
+    import torch
+
+    from tdgl_tpu_torch.ops import step_kernels as sk
+    from tdgl_tpu_torch.parallel import solve_sweep
+
+    opts = pkg.SolverOptions(**options)
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    with HostReads() as reads:
+        t0 = time.perf_counter()
+        result = solve_sweep(device, opts, torch_device="cuda", **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in sk.KERNELS}
+    B = len(result.values)
+    steps = int(result.steps.sum())
+    chunk = options["save_every"]
+    slots = -(-int(result.steps.max()) // chunk) * chunk
+    rec = dict(members=B, steps=result.steps.tolist(), seconds=wall,
+               member_steps_per_s=steps / wall, launches=launches,
+               slots=slots, host_reads=reads.n,
+               host_reads_per_slot=reads.n / slots,
+               failed=result.failed.tolist())
+    log(f"  {label}: B={B}, steps {sorted(set(rec['steps']))}, {wall:.2f} s"
+        f" = {rec['member_steps_per_s']:.2f} members x steps/s; launches"
+        f" {launches} in {slots} step slots ="
+        f" {launches['fused_psi_update'] / slots:.3f} psi and"
+        f" {launches['fused_poisson_rhs'] / slots:.3f} RHS per slot; host"
+        f" reads {reads.n} = {rec['host_reads_per_slot']:.2f} per slot")
+    return result, rec
+
+
+def sweep_voltage_trace(result, b: int):
+    """Member ``b``'s voltage between the two probes at each of its steps
+    (V0)."""
+    import numpy as np
+
+    steps = np.flatnonzero(result.dynamics_dt[b] > 0)
+    return (result.dynamics_mu[b, 0, steps]
+            - result.dynamics_mu[b, 1, steps])
+
+
+def run_sweep_path(pkg, args, solver, device, ell_device, options, inputs):
+    """Phase 13: batched sweeps (see the module docstring). Returns the
+    numbers it prints."""
+    import numpy as np
+
+    B = 8
+    scales = np.linspace(0.25, 2.0, B)
+    inner = np.ones(len(device.mesh.sites), dtype=bool)
+    for terminal in device.terminal_info():
+        inner[terminal.site_indices] = False
+    kernels = check_batched_kernels(solver, B, sleep_cycles_per_ms())
+    sw_opts = dict(options, solve_time=1e9, save_every=args.sweep_chunk)
+    runs = {}
+    results = {}
+    sweeps = {
+        "field sweep": dict(applied_vector_potential=0.5,
+                            terminal_currents=inputs["terminal_currents"],
+                            field_scales=scales),
+        "current sweep": dict(applied_vector_potential=0.5,
+                              terminal_currents=SweepBias(20.0, 1.0),
+                              current_scales=scales),
+    }
+    for kind, kw in sweeps.items():
+        for members in (B, 1):
+            one = {k: (v[-1:] if k.endswith("_scales") else v)
+                   for k, v in kw.items()}
+            result, rec = run_sweep(pkg, device, sw_opts,
+                                    f"{kind} (structured, float32)",
+                                    max_steps=args.sweep_steps,
+                                    **(kw if members == B else one))
+            runs[f"{kind} (B={members})"] = rec
+            results[(kind, members)] = result
+            assert not any(rec["failed"]), (kind, rec["failed"])
+            assert min(rec["steps"]) >= args.sweep_steps, rec["steps"]
+            assert rec["launches"]["fused_poisson_rhs"] == rec["slots"]
+            assert rec["launches"]["fused_psi_update"] >= rec["slots"]
+            assert np.isfinite(result.psi).all() and np.isfinite(
+                result.mu).all()
+        # |psi| away from the terminals (which hold it at 0): the
+        # strongest member's minimum below 0.9, and its mean |psi|^2 below
+        # the weakest member's.
+        abs_psi = np.abs(results[(kind, B)].psi[:, inner])
+        psi_min = float(abs_psi[-1].min())
+        psi_sq = np.mean(abs_psi**2, axis=1)
+        log(f"  {kind}: away from the terminals, |psi| min of the strongest"
+            f" member {psi_min:.4f}, mean |psi|^2 weakest {psi_sq[0]:.4f},"
+            f" strongest {psi_sq[-1]:.4f}; members x steps/s B={B}"
+            f" {runs[f'{kind} (B={B})']['member_steps_per_s']:.2f}, B=1"
+            f" {runs[f'{kind} (B=1)']['member_steps_per_s']:.2f}")
+        assert psi_min < 0.9 and psi_sq[-1] < psi_sq[0], (psi_min, psi_sq)
+    current = results[("current sweep", B)]
+    final_v = [abs(float(sweep_voltage_trace(current, b)[-1]))
+               for b in range(B)]
+    log(f"  current sweep: final |voltage| by bias scale"
+        f" {[round(x, 6) for x in final_v]} V0; mean voltages"
+        f" {np.round(current.mean_voltages(), 6).tolist()} V0")
+    # The test of tests/test_parallel.py: the strongest bias's final
+    # voltage is more than twice the weakest's (the voltage fluctuates
+    # from step to step, so neighbouring members may cross).
+    assert final_v[-1] > 2.0 * final_v[0] > 0, final_v
+    # Witnesses: members 1 and 2 (neighbours, whose final voltages may
+    # cross) and the strongest member, each run alone over the same steps.
+    # The film is in its phase-slip regime, where a difference at the
+    # rounding level grows about tenfold every few steps (as between the
+    # JAX package's own batched and single runs), so a member and its
+    # witness agree closely only at first: over the first WITNESS_STEPS
+    # steps their voltage traces must agree to WITNESS_RTOL, which must
+    # be below the difference between the neighbours' own traces. The
+    # step at which a member and its witness part by 1% is printed.
+    witnesses = {B - 1: results[("current sweep", 1)]}
+    for b in (1, 2):
+        witnesses[b], _ = run_sweep(
+            pkg, device, sw_opts, f"current sweep alone at scale {scales[b]}",
+            max_steps=args.sweep_steps, applied_vector_potential=0.5,
+            terminal_currents=SweepBias(20.0, 1.0),
+            current_scales=scales[b:b + 1])
+    witness_err = {}
+    for b, alone in sorted(witnesses.items()):
+        v_batch = sweep_voltage_trace(current, b)
+        v_alone = sweep_voltage_trace(alone, 0)
+        n = min(len(v_batch), len(v_alone))
+        diff = np.abs(v_batch[:n] - v_alone[:n]) / np.abs(v_alone[:n]).max()
+        witness_err[b] = float(diff[:WITNESS_STEPS].max())
+        apart = np.flatnonzero(diff > 1e-2)
+        log(f"  member {b} (scale {scales[b]}) against its run alone:"
+            f" voltage max rel difference {witness_err[b]:.3e} over the"
+            f" first {WITNESS_STEPS} steps; apart by 1% from step"
+            f" {int(apart[0]) if len(apart) else None}; final |voltage|"
+            f" {final_v[b]:.6f} V0 in the batch, {abs(v_alone[-1]):.6f}"
+            f" alone")
+    v1, v2 = (sweep_voltage_trace(witnesses[b], 0)[:WITNESS_STEPS]
+              for b in (1, 2))
+    neighbours = float(np.abs(v1 - v2).max() / np.abs(v2).max())
+    log(f"  members 1 and 2 alone: voltage max rel difference"
+        f" {neighbours:.3e} over the first {WITNESS_STEPS} steps")
+    assert max(witness_err.values()) < WITNESS_RTOL < neighbours, (
+        witness_err, neighbours)
+
+    # float64 on the small film: each member against a single robust run.
+    small = small_device(pkg)
+    o64 = dict(solve_time=0.1, dt_init=1e-3, save_every=20,
+               dtype="float64", field_units="mT", current_units="uA",
+               chunk_failover="off")
+    small_scales = [0.5, 1.0, 2.0]
+    from tdgl_tpu_torch.parallel import solve_sweep
+
+    sw = solve_sweep(small, pkg.SolverOptions(**o64),
+                     applied_vector_potential=0.5,
+                     terminal_currents=dict(source=3.0, drain=-3.0),
+                     field_scales=small_scales, torch_device="cuda")
+    worst = 0.0
+    for b, s in enumerate(small_scales):
+        single = pkg.TDGLSolver(small, pkg.SolverOptions(**o64),
+                                applied_vector_potential=0.5 * s,
+                                terminal_currents=dict(source=3.0,
+                                                       drain=-3.0),
+                                torch_device="cuda")
+        state = single._initial_state()
+        while not bool(state.done):
+            state, _, _ = single.chunk_fn(state)
+        data = single._state_to_arrays({
+            "psi_real": state.psi_r, "psi_imag": state.psi_i,
+            "mu": state.mu, "supercurrent": state.supercurrent,
+            "normal_current": state.normal_current,
+            "induced_vector_potential": state.A_induced})
+        assert int(state.step) == int(sw.steps[b]), (b, int(state.step),
+                                                     sw.steps[b])
+        for name, got in (("psi", sw.psi[b]), ("mu", sw.mu[b])):
+            ref = data[name]
+            worst = max(worst, float(np.abs(got - ref).max()
+                                     / np.abs(ref).max()))
+    log(f"  float64 small film, {len(small_scales)}-member sweep vs single"
+        f" robust runs: steps {sw.steps.tolist()}, max rel err {worst:.3e}")
+    assert worst < 1e-10, worst
+
+    # The ELL backend: an 8-member field sweep on phase 11's film.
+    ell_opts = dict(sw_opts, save_every=min(args.sweep_chunk,
+                                            args.sweep_ell_steps))
+    ell_kw = dict(sweeps["field sweep"], max_steps=args.sweep_ell_steps)
+    for members in (B, 1):
+        kw = dict(ell_kw, field_scales=scales if members == B
+                  else scales[-1:])
+        result, rec = run_sweep(pkg, ell_device, ell_opts,
+                                "field sweep (ELL, float32)", **kw)
+        runs[f"ELL field sweep (B={members})"] = rec
+        assert not any(rec["failed"]) and np.isfinite(result.psi).all()
+        assert rec["launches"] == {"fused_psi_update": 0,
+                                   "fused_poisson_rhs": 0}
+    return dict(kernels=kernels, runs=runs, small_f64_max_rel_err=worst,
+                current_final_voltages=final_v,
+                current_witness_rel_err=witness_err)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--chunk", type=int, default=500,
@@ -1353,6 +1752,13 @@ def main() -> int:
                         " runs (the checkpoint is taken at half of it)")
     parser.add_argument("--resume-chunk", type=int, default=100,
                         help="steps per chunk and per snapshot of phase 12")
+    parser.add_argument("--sweep-steps", type=int, default=200,
+                        help="steps per member of phase 13's structured"
+                        " sweeps")
+    parser.add_argument("--sweep-chunk", type=int, default=100,
+                        help="steps per chunk of phase 13's sweeps")
+    parser.add_argument("--sweep-ell-steps", type=int, default=100,
+                        help="steps per member of phase 13's ELL sweep")
     args = parser.parse_args()
 
     import torch
@@ -1745,6 +2151,10 @@ def main() -> int:
                   "ell": run_resume_path(ttdgl, args, ell_device, options,
                                          inputs, tmp)}
 
+    with Phase("batched sweeps (solve_sweep)"):
+        sweep = run_sweep_path(ttdgl, args, solver, device, ell_device,
+                               options, inputs)
+
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"],
@@ -1772,6 +2182,12 @@ def main() -> int:
             by_path[key] = dict(zip((fn.__name__ for fn in sk.KERNELS),
                                     rec["runs"][run_name]["launches"]))
             slots_by_path[key] = rec["runs"][run_name]["slots"]
+    # Phase 13: each sweep's launches, counted from 0 just before it and
+    # read just after (one launch of each kernel per step slot serves the
+    # whole batch; the ELL sweep launches neither).
+    for key, run in sweep["runs"].items():
+        by_path[key] = run["launches"]
+        slots_by_path[key] = run["slots"]
 
     def record(name, source, replaces):
         fac = timings[name]["factored"]
@@ -1788,6 +2204,9 @@ def main() -> int:
             chunk_loop_launches=loop_launches[name],
             cold_ms=fac["cold_ms"], paced_ms=fac["paced_ms"],
             raw_ms=timings[name]["raw"]["ms"],
+            # Phase 13: one launch for 8 members (factored, per-member
+            # links), against 8 single launches, and its bound.
+            batch=sweep["kernels"][name],
         )
         if name == "fused_poisson_rhs":
             # The J_s-writing form, in the raw link form that the screened
@@ -1810,7 +2229,9 @@ def main() -> int:
     log(json.dumps({"breakdown": {"static": phase8, "traced ramp":
                                   ramp_breakdown, "screened": scr_breakdown},
                     "induced_ms": induced_ms, "ell": ell,
-                    "resume": resume}))
+                    "resume": resume,
+                    "sweep": {k: v for k, v in sweep.items()
+                              if k != "kernels"}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

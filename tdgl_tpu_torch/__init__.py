@@ -10,7 +10,8 @@ with ``make_mesh()`` (or ``make_mesh(structured=True)``) and call
 ``solve(device, options, ...)``,
 which runs on the card (``torch_device="cuda"``, the default) or on the
 CPU (``torch_device="cpu"``), writes the standard HDF5 output file and
-returns a :class:`Solution`.
+returns a :class:`Solution`. :func:`parallel.solve_sweep` runs a
+field or current sweep as one batch of runs on the same device.
 """
 
 from .about import version_dict
@@ -29,4 +30,4 @@ from .solver.solver import TDGLSolver, jittable
 from .sources import ConstantField, CurrentLoop, LinearRamp, Scale
 from .utils.units import Quantity, UnitRegistry, ureg
 from .version import __version__, __version_info__
-from . import sources
+from . import parallel, sources

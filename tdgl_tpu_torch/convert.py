@@ -147,7 +147,10 @@ def grid_state_to_torch(state, device: DeviceLike,
     fields an export does not hold (``mu_prev``, ``neumann_term``,
     ``dA_dt``, the adaptive-dt window, ``end_time``, ...) are then taken
     from ``template``, and the scalars from its ``diagnostics``
-    (``done``/``failed`` included).
+    (``done``/``failed`` included). Either form may be a batch of a
+    parameter sweep (the JAX package's vmapped state or export, numpy
+    arrays with a leading member axis B, diagnostics ``(B, 6)``); a batched
+    export needs a batched ``template``.
     """
     if not isinstance(state, Mapping):
         return GridState(*(to_tensor(getattr(state, f), device)
@@ -170,7 +173,8 @@ def solver_state_to_torch(state, device: DeviceLike,
     ``state`` may also be the mapping of ``export_state_arrays``; the
     fields an export does not hold (``mu_prev``, ``mu_boundary``,
     ``dA_dt``, the adaptive-dt window, ``end_time``) are then taken from
-    ``template``, and the scalars from its ``diagnostics``.
+    ``template``, and the scalars from its ``diagnostics``. Batches
+    convert as in :func:`grid_state_to_torch`.
     """
     if not isinstance(state, Mapping):
         return SolverState(*(to_tensor(getattr(state, f), device)
@@ -189,16 +193,19 @@ def solver_state_to_torch(state, device: DeviceLike,
 
 
 def _diagnostic_scalars(diagnostics, rd, device):
-    """The state's 0-d fields from an exported ``diagnostics`` vector."""
+    """The state's scalar fields from an exported ``diagnostics`` vector
+    (0-d fields), or from a batch's ``(B, 6)`` diagnostics (``(B,)``
+    fields)."""
     diag = np.asarray(diagnostics, dtype=np.float64)
 
     def scalar(v, dtype):
-        return torch.tensor(v, dtype=dtype, device=device)
+        return torch.tensor(np.asarray(v).tolist(), dtype=dtype,
+                            device=device)
 
     return dict(
-        time=scalar(diag[0], rd), prev_dt=scalar(diag[1], rd),
-        tentative_dt=scalar(diag[2], rd),
-        step=scalar(int(diag[3]), torch.int32),
-        done=scalar(bool(diag[4]), torch.bool),
-        failed=scalar(bool(diag[5]), torch.bool),
+        time=scalar(diag[..., 0], rd), prev_dt=scalar(diag[..., 1], rd),
+        tentative_dt=scalar(diag[..., 2], rd),
+        step=scalar(diag[..., 3].astype(np.int64), torch.int32),
+        done=scalar(diag[..., 4] != 0, torch.bool),
+        failed=scalar(diag[..., 5] != 0, torch.bool),
     )

@@ -19,7 +19,10 @@
 // plane (four with J_s). At (256, 384) float32: 14 planes, ~5.5 MB, 1.65 us
 // at 3.35 TB/s (factored); 20 planes, ~7.9 MB, 2.35 us (raw); the J_s form
 // with raw links, the screened step's, 23 planes, ~9.0 MB, 2.70 us. About 2
-// flop per byte.
+// flop per byte. A batch of B members moves 4 planes per member (pr, pi
+// and the Neumann plane in, rhs out) and the 10 shared ones (inv_len,
+// dual, dA/dt, inv_area) once: at B = 8 factored with per-member links,
+// 42 planes and 122,880 B of vectors, 16.6 MB, 4.97 us.
 //
 // Design (stencil_common.cuh): one block per 8 x 32 tile, 256 threads,
 // one site per thread, 384 blocks at (256, 384).
@@ -36,15 +39,35 @@
 // 3. Each site takes the divergence sum_k dF_k(i) - dF_k(i - offset_k)
 //    from shared memory, times inv_area, minus the Neumann term.
 //
+// Members (stencil_common.cuh): blockIdx.z is the member of a batch. pr,
+// pi, the links, dA/dt and the Neumann plane move by their member
+// strides (0 where all members share one: the links and dA/dt of a
+// current sweep, the Neumann plane of a field sweep); inv_len, dual and
+// inv_area are always shared; rhs is (B, rows, cols) and J_s (B, 3, rows,
+// cols). A single run is B = 1, launched with RhsArgs alone (no strides),
+// as before the member axis, and forms no member offsets.
+//
 // ptxas on the card (-Xptxas -v, sm_90a, CUDA 12.8), registers per thread
-// and static shared memory per block, no spills (after the slash: the J_s
-// form):
-//   float  factored 42/46 regs, 7,448 B    float  raw 48/57 regs, 6,392 B
-//   double factored 64/62 regs, 14,896 B   double raw 64/78 regs, 12,784 B
+// and static shared memory per block, no spills but 8 B in the batched
+// double raw form; a single run / its J_s form, then the same two for a
+// batch (the single-run counts are those of the kernel before the member
+// axis):
+//   float  factored 42/46, 46/48 regs, 7,448 B
+//   float  raw      48/57, 48/56 regs, 6,392 B
+//   double factored 64/62, 58/64 regs, 14,896 B
+//   double raw      64/78, 64/76 regs, 12,784 B
 
 #include "stencil_common.cuh"
 
 namespace tdgl {
+
+// Slots of the member-stride array of the RHS kernel (the wrapper fills
+// it in this order): pr, pi, the raw link planes (ur and ui), the
+// factored row vectors (cf, sf), the factored column vectors (cg, sg),
+// dA/dt and the Neumann plane.
+enum RhsStride {
+  kRPr, kRPi, kRRaw, kRRowVec, kRColVec, kRDa, kRNeumann, kRhsStrides
+};
 
 template <typename T>
 struct RhsArgs {
@@ -62,9 +85,53 @@ struct RhsArgs {
   int cols;
 };
 
-template <typename T, bool FACTORED, bool WRITE_JS>
+// Member strides in elements (0: shared by all members), in the order of
+// RhsStride. Only the batched kernel takes them, so a single run's
+// argument block is RhsArgs alone.
+struct RhsStrides {
+  long long s[kRhsStrides];
+};
+
+// This block's operands: a single run's as they are (the kernel's own
+// argument, not a copy, so its code is that of a kernel without a member
+// axis); in a batch, every pointer moved to member z = blockIdx.z.
+template <typename T>
+__device__ __forceinline__ const RhsArgs<T>& at_member(const RhsArgs<T>& a) {
+  return a;
+}
+
+template <typename T>
+__device__ __forceinline__ RhsArgs<T> at_member(RhsArgs<T> m,
+                                                const RhsStrides& st) {
+  const long long z = blockIdx.z;
+  const long long n = static_cast<long long>(m.rows) * m.cols;
+  m.pr += z * st.s[kRPr];
+  m.pi += z * st.s[kRPi];
+  if (m.link.ur != nullptr) {
+    m.link.ur += z * st.s[kRRaw];
+    m.link.ui += z * st.s[kRRaw];
+  }
+  if (m.link.cf != nullptr) {
+    m.link.cf += z * st.s[kRRowVec];
+    m.link.sf += z * st.s[kRRowVec];
+    m.link.cg += z * st.s[kRColVec];
+    m.link.sg += z * st.s[kRColVec];
+  }
+  m.dA_dt += z * st.s[kRDa];
+  m.neumann += z * st.s[kRNeumann];
+  m.rhs += z * n;
+  if (m.js != nullptr) m.js += z * 3 * n;
+  return m;
+}
+
+// A single run (B = 1) passes no strides, so RhsArgs is its whole
+// argument block and no member offsets are formed: a single run pays
+// nothing for the member axis. A batch passes RhsStrides, and blockIdx.z
+// is the member.
+template <typename T, bool FACTORED, bool WRITE_JS, typename... Strides>
 __global__ void __launch_bounds__(kThreads)
-poisson_rhs_kernel(const RhsArgs<T> a) {
+poisson_rhs_kernel(const RhsArgs<T> args, const Strides... strides) {
+  const RhsArgs<T>& a = at_member(args, strides...);
   __shared__ T s_pr[kHalo];
   __shared__ T s_pi[kHalo];
   __shared__ T s_flux[3 * kEdge];
@@ -150,29 +217,49 @@ poisson_rhs_kernel(const RhsArgs<T> a) {
   a.rhs[i] = acc * inv_a - neumann;
 }
 
+// One of the four link and J_s forms, of a single run (no strides) or of
+// a batch.
+template <typename T, bool FACTORED, bool WRITE_JS>
+void launch_rhs_form(const RhsArgs<T>& a, const RhsStrides* st, dim3 grid,
+                     cudaStream_t s) {
+  if (st == nullptr) {
+    poisson_rhs_kernel<T, FACTORED, WRITE_JS>
+        <<<grid, tile_block(), 0, s>>>(a);
+  } else {
+    poisson_rhs_kernel<T, FACTORED, WRITE_JS>
+        <<<grid, tile_block(), 0, s>>>(a, *st);
+  }
+}
+
 template <typename T>
 int launch_poisson_rhs(const T* pr, const T* pi, const T* ur, const T* ui,
                        const T* cf, const T* sf, const T* cg, const T* sg,
                        int factored, const T* inv_len, const T* dual,
                        const T* dA_dt, const T* inv_area, const T* neumann,
-                       T* rhs, T* js, int rows, int cols, void* stream) {
-  if (!tiles_cover(rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
+                       T* rhs, T* js, int rows, int cols, int members,
+                       const long long* strides, void* stream) {
+  if (!tiles_cover(rows, cols) || members < 1 || members > kMaxMembers) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   RhsArgs<T> a;
   a.pr = pr; a.pi = pi;
   a.link = Links<T>{ur, ui, cf, sf, cg, sg};
   a.inv_len = inv_len; a.dual = dual; a.dA_dt = dA_dt;
   a.inv_area = inv_area; a.neumann = neumann; a.rhs = rhs; a.js = js;
   a.rows = rows; a.cols = cols;
+  RhsStrides st;
+  for (int k = 0; k < kRhsStrides; ++k) st.s[k] = strides[k];
+  const RhsStrides* batch = members > 1 ? &st : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = tile_grid(rows, cols);
+  const dim3 grid = tile_grid(rows, cols, members);
   if (factored && js != nullptr) {
-    poisson_rhs_kernel<T, true, true><<<grid, tile_block(), 0, s>>>(a);
+    launch_rhs_form<T, true, true>(a, batch, grid, s);
   } else if (factored) {
-    poisson_rhs_kernel<T, true, false><<<grid, tile_block(), 0, s>>>(a);
+    launch_rhs_form<T, true, false>(a, batch, grid, s);
   } else if (js != nullptr) {
-    poisson_rhs_kernel<T, false, true><<<grid, tile_block(), 0, s>>>(a);
+    launch_rhs_form<T, false, true>(a, batch, grid, s);
   } else {
-    poisson_rhs_kernel<T, false, false><<<grid, tile_block(), 0, s>>>(a);
+    launch_rhs_form<T, false, false>(a, batch, grid, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -184,11 +271,12 @@ int launch_poisson_rhs(const T* pr, const T* pi, const T* ur, const T* ui,
                       const T* cf, const T* sf, const T* cg, const T* sg,     \
                       int factored, const T* inv_len, const T* dual,          \
                       const T* dA_dt, const T* inv_area, const T* neumann,    \
-                      T* rhs, T* js, int rows, int cols, void* stream) {      \
+                      T* rhs, T* js, int rows, int cols, int members,         \
+                      const long long* strides, void* stream) {               \
     return tdgl::launch_poisson_rhs<T>(pr, pi, ur, ui, cf, sf, cg, sg,        \
                                        factored, inv_len, dual, dA_dt,        \
                                        inv_area, neumann, rhs, js, rows,      \
-                                       cols, stream);                         \
+                                       cols, members, strides, stream);       \
   }
 
 TDGL_RHS_ENTRY(tdgl_poisson_rhs_f32, float)

@@ -18,7 +18,11 @@
 // more planes in the raw form, and writes 3 planes. At (256, 384) float32
 // a plane is 393,216 B: 14 planes, ~5.5 MB, 1.65 us at 3.35 TB/s
 // (factored); 20 planes, ~7.9 MB, 2.35 us (raw). About 2 flop per byte,
-// far below the ~20 at which float32 arithmetic would bound it.
+// far below the ~20 at which float32 arithmetic would bound it. A batch of
+// B members with per-member links (a field sweep) moves 6 planes per
+// member (pr, pi, mu in; three out) and the 8 shared ones (eps and the
+// stencil's 7) once, plus B sets of link vectors: at B = 8 factored,
+// 56 planes and 122,880 B of vectors, 22.1 MB, 6.61 us.
 //
 // Design (stencil_common.cuh): one block per 8 x 32 tile, 256 threads,
 // one site per thread, 384 blocks at (256, 384).
@@ -37,26 +41,46 @@
 //    the update.
 // 4. `ok` in the same launch: each block ORs "valid site with
 //    !(disc >= 0)" over its threads (__syncthreads_or), then adds itself
-//    to one flag word with a single atomicAdd: the low 16 bits count
-//    blocks (the ticket), the high 16 bits count failing blocks. The add
-//    that returns a ticket of blocks - 1 belongs to the block that counts
-//    itself last; the value it returns holds every other block's verdict,
-//    so that block writes `ok` and stores 0 for the next launch. One
-//    atomic word needs no fence, and the reset does not depend on block
-//    order, so the launch also works under CUDA-graph replay. The word
-//    belongs to one device and assumes one stream on it: the wrapper keeps
-//    one zeroed word per device and launches on the current stream only.
+//    to its member's flag word with a single atomicAdd: the low 16 bits
+//    count the member's blocks (the ticket), the high 16 bits count its
+//    failing blocks. The add that returns a ticket of blocks - 1 belongs
+//    to the block that counts itself last; the value it returns holds
+//    every other block's verdict, so that block writes the member's `ok`
+//    and stores 0 for the next launch. One atomic word needs no fence, and
+//    the reset does not depend on block order, so the launch also works
+//    under CUDA-graph replay. The words belong to one device and assume
+//    one stream on it: the wrapper keeps one zeroed buffer of words per
+//    device and launches on the current stream only.
+//
+// Members. A batch of B runs (a parameter sweep) is one launch with
+// blockIdx.z the member: every operand pointer moves by z times its
+// member stride, in elements, 0 for a plane that all members share
+// (the stencil planes always; the links, mu, epsilon or dt where the
+// caller passes one for all). Outputs are (B, rows, cols), dt and `ok`
+// (B,), and each member has its own flag word, so the 16-bit ticket
+// counts one member's blocks and members never see each other's verdict.
+// A single run is B = 1, launched with PsiArgs alone (no strides), as
+// before the member axis, and forms no member offsets.
 //
 // ptxas on the card (-Xptxas -v, sm_90a, CUDA 12.8), registers per thread
-// and static shared memory per block, no spills (the 32-40 B stack frame
-// is sincos's slow argument reduction); the optional old_sq operand took
-// float raw from 48 to 64 registers, at an unchanged time per call:
-//   float  factored 40 regs, 11,120 B    float  raw 64 regs, 10,064 B
-//   double factored 60 regs, 22,240 B    double raw 80 regs, 20,128 B
+// of a single run / a batch and static shared memory per block, no spills
+// (the 32-40 B stack frame is sincos's slow argument reduction); the
+// single-run counts are those of the kernel before the member axis:
+//   float  factored 40/40 regs, 11,120 B    float  raw 64/64 regs, 10,064 B
+//   double factored 60/60 regs, 22,240 B    double raw 80/80 regs, 20,128 B
 
 #include "stencil_common.cuh"
 
 namespace tdgl {
+
+// Slots of the member-stride array of the psi kernel (the wrapper fills
+// it in this order): pr, pi, old_sq, mu, epsilon, the raw link planes
+// (ur and ui), the factored row vectors (cf, sf), the factored column
+// vectors (cg, sg) and dt.
+enum PsiStride {
+  kSPr, kSPi, kSOldSq, kSMu, kSEps, kSRaw, kSRowVec, kSColVec, kSDt,
+  kPsiStrides
+};
 
 template <typename T>
 struct PsiArgs {
@@ -71,22 +95,72 @@ struct PsiArgs {
   const T* fixed;
   const T* valid;
   Links<T> link;
-  const T* dt;        // device scalar
+  const T* dt;        // device scalar (per member: moved by the stride)
   T half_g2;          // 0.5 * gamma^2
   T g2;               // gamma^2
   T u;
   T* out_r;
   T* out_i;
   T* out_sq;
-  unsigned int* flag;  // failing blocks << 16 | blocks; 0 between launches
-  unsigned char* ok;  // 0-d torch.bool
+  unsigned int* flag;  // per member: failing blocks << 16 | blocks; 0
+                       // between launches
+  unsigned char* ok;  // per member torch.bool
   int rows;
   int cols;
 };
 
-template <typename T, bool FACTORED>
+// Member strides in elements (0: shared by all members), in the order of
+// PsiStride. Only the batched kernel takes them, so a single run's
+// argument block is PsiArgs alone.
+struct PsiStrides {
+  long long s[kPsiStrides];
+};
+
+// This block's operands: a single run's as they are (the kernel's own
+// argument, not a copy, so its code is that of a kernel without a member
+// axis); in a batch, every pointer moved to member z = blockIdx.z.
+template <typename T>
+__device__ __forceinline__ const PsiArgs<T>& at_member(const PsiArgs<T>& a) {
+  return a;
+}
+
+template <typename T>
+__device__ __forceinline__ PsiArgs<T> at_member(PsiArgs<T> m,
+                                                const PsiStrides& st) {
+  const long long z = blockIdx.z;
+  const long long n = static_cast<long long>(m.rows) * m.cols;
+  m.pr += z * st.s[kSPr];
+  m.pi += z * st.s[kSPi];
+  if (m.old_sq != nullptr) m.old_sq += z * st.s[kSOldSq];
+  m.mu += z * st.s[kSMu];
+  m.eps += z * st.s[kSEps];
+  if (m.link.ur != nullptr) {
+    m.link.ur += z * st.s[kSRaw];
+    m.link.ui += z * st.s[kSRaw];
+  }
+  if (m.link.cf != nullptr) {
+    m.link.cf += z * st.s[kSRowVec];
+    m.link.sf += z * st.s[kSRowVec];
+    m.link.cg += z * st.s[kSColVec];
+    m.link.sg += z * st.s[kSColVec];
+  }
+  m.dt += z * st.s[kSDt];
+  m.out_r += z * n;
+  m.out_i += z * n;
+  m.out_sq += z * n;
+  m.flag += z;
+  m.ok += z;
+  return m;
+}
+
+// A single run (B = 1) passes no strides, so PsiArgs is its whole
+// argument block and no member offsets are formed: a single run pays
+// nothing for the member axis. A batch passes PsiStrides, and blockIdx.z
+// is the member.
+template <typename T, bool FACTORED, typename... Strides>
 __global__ void __launch_bounds__(kThreads)
-psi_update_kernel(const PsiArgs<T> a) {
+psi_update_kernel(const PsiArgs<T> args, const Strides... strides) {
+  const PsiArgs<T>& a = at_member(args, strides...);
   __shared__ T s_pr[kHalo];
   __shared__ T s_pi[kHalo];
   __shared__ T s_nr[3 * kEdge];   // negative-edge term, real part
@@ -243,10 +317,12 @@ int launch_psi_update(const T* pr, const T* pi, const T* old_sq,
                       const T* sg, int factored, const T* dt, double gamma,
                       double u, T* out_r, T* out_i, T* out_sq,
                       unsigned int* flag, unsigned char* ok, int rows,
-                      int cols, void* stream) {
-  // The flag word counts blocks in 16 bits.
+                      int cols, int members, const long long* strides,
+                      void* stream) {
+  // A flag word counts one member's blocks in 16 bits.
   if (!tiles_cover(rows, cols) ||
-      (rows / kTileR) * (cols / kTileC) > 0xffff) {
+      (rows / kTileR) * (cols / kTileC) > 0xffff || members < 1 ||
+      members > kMaxMembers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PsiArgs<T> a;
@@ -262,8 +338,16 @@ int launch_psi_update(const T* pr, const T* pi, const T* old_sq,
   a.flag = flag; a.ok = ok;
   a.rows = rows; a.cols = cols;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = tile_grid(rows, cols);
-  if (factored) {
+  const dim3 grid = tile_grid(rows, cols, members);
+  if (members > 1) {
+    PsiStrides st;
+    for (int k = 0; k < kPsiStrides; ++k) st.s[k] = strides[k];
+    if (factored) {
+      psi_update_kernel<T, true><<<grid, tile_block(), 0, s>>>(a, st);
+    } else {
+      psi_update_kernel<T, false><<<grid, tile_block(), 0, s>>>(a, st);
+    }
+  } else if (factored) {
     psi_update_kernel<T, true><<<grid, tile_block(), 0, s>>>(a);
   } else {
     psi_update_kernel<T, false><<<grid, tile_block(), 0, s>>>(a);
@@ -282,12 +366,14 @@ int launch_psi_update(const T* pr, const T* pi, const T* old_sq,
                       const T* sg, int factored, const T* dt, double gamma,   \
                       double u, T* out_r, T* out_i, T* out_sq,                \
                       unsigned int* flag, unsigned char* ok, int rows,        \
-                      int cols, void* stream) {                               \
+                      int cols, int members, const long long* strides,        \
+                      void* stream) {                                         \
     return tdgl::launch_psi_update<T>(pr, pi, old_sq, mu, eps, w, sym_diag,   \
                                       inv_area, fixed, valid, ur, ui, cf, sf, \
                                       cg, sg,                                 \
                                       factored, dt, gamma, u, out_r, out_i,   \
-                                      out_sq, flag, ok, rows, cols, stream);  \
+                                      out_sq, flag, ok, rows, cols, members,  \
+                                      strides, stream);                       \
   }
 
 TDGL_PSI_ENTRY(tdgl_psi_update_f32, float)

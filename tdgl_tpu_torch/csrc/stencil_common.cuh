@@ -4,6 +4,11 @@
 // (3, rows, cols), one slab per direction class k with lattice offsets
 // E (0, 1), N (1, 0), NW (1, -1) (tdgl_tpu_torch/device/hexmesh.py).
 //
+// Members. A launch may run a batch of B independent runs on the same
+// grid (a parameter sweep): blockIdx.z is the member, and each kernel
+// moves its operand pointers to the member's planes (a member stride of 0
+// for a plane all members share). A single run is B = 1.
+//
 // Tiling. A block owns a kTileR x kTileC tile of sites and runs one
 // thread per site: thread (x, y) owns the tile's site (y, x), so each
 // warp covers one 32-site row segment and its loads and stores are
@@ -47,6 +52,8 @@ constexpr int kHaloIters = (kHalo + kThreads - 1) / kThreads;
 constexpr int kEdgeIters = (3 * kEdge + kThreads - 1) / kThreads;
 constexpr int kLinkVec = 3 * (kHaloR + kHaloC);      // factored vectors
 constexpr int kLinkIters = (kLinkVec + kThreads - 1) / kThreads;
+// Members per launch: blockIdx.z is the member (gridDim.z <= 65535).
+constexpr int kMaxMembers = 65535;
 
 __device__ __forceinline__ int off_r(int k) { return k == 0 ? 0 : 1; }
 __device__ __forceinline__ int off_c(int k) { return k == 0 ? 1 : (k == 1 ? 0 : -1); }
@@ -73,8 +80,9 @@ inline bool tiles_cover(int rows, int cols) {
   return rows > 0 && cols > 0 && rows % kTileR == 0 && cols % kTileC == 0;
 }
 
-inline dim3 tile_grid(int rows, int cols) {
-  return dim3(cols / kTileC, rows / kTileR);
+// One z layer of tiles per member (a single run: members = 1).
+inline dim3 tile_grid(int rows, int cols, int members) {
+  return dim3(cols / kTileC, rows / kTileR, members);
 }
 
 inline dim3 tile_block() { return dim3(kTileC, kTileR); }

@@ -14,6 +14,10 @@ Conventions (as in the JAX package):
   field.
 * Edge quantities (supercurrent, normal current, A) live on the canonical
   edge orientation ``r[edges[:,1]] - r[edges[:,0]]``.
+* Every field may carry a leading member axis (a batch of runs of a
+  parameter sweep): ``(B, N, 2)``, ``(B, N)``, ``(B, E)``; the tables are
+  shared and the gathers index the site or edge axis. A per-member ``dt``
+  is a ``(B,)`` vector and the psi update's ``ok`` is then ``(B,)``.
 * ``U_e = exp(-i A.e_direction)`` is the spatial link variable, stored as
   the pair ``(cos, -sin)``; the directed phase from site i to neighbor j
   is ``U_e`` if the edge's canonical direction points i -> j, else
@@ -46,7 +50,7 @@ def edge_link_phases(A_edge: torch.Tensor,
         A_edge: ``(E, 2)`` vector potential at edge centers.
         edge_directions: ``(E, 2)`` unnormalized edge vectors.
     """
-    a = torch.sum(A_edge * edge_directions, dim=1)
+    a = torch.sum(A_edge * edge_directions, dim=-1)
     return torch.stack([torch.cos(a), -torch.sin(a)], dim=-1)
 
 
@@ -58,19 +62,19 @@ def covariant_laplacian(op, U: torch.Tensor, psi: torch.Tensor
     fixed (terminal) sites become identity rows.
     """
     rdt = psi.dtype
-    U_slot = U[op.nbr_edge]                  # (N, K, 2) paired gather
+    U_slot = U[..., op.nbr_edge, :]          # (N, K, 2) paired gather
     ur = U_slot[..., 0]
     # conj for slots whose canonical edge points j -> i: sign flips im.
     ui = U_slot[..., 1] * op.nbr_sign.to(rdt)
-    psi_nbr = psi[op.nbr_site]               # (N, K, 2)
+    psi_nbr = psi[..., op.nbr_site, :]       # (N, K, 2)
     pr_n = psi_nbr[..., 0]
     pi_n = psi_nbr[..., 1]
     w = op.w_lap.to(rdt)
     rowsum = op.w_lap_rowsum.to(rdt)
     pr = psi[..., 0]
     pi = psi[..., 1]
-    lap_r = torch.sum(w * (ur * pr_n - ui * pi_n), dim=1) - pr * rowsum
-    lap_i = torch.sum(w * (ur * pi_n + ui * pr_n), dim=1) - pi * rowsum
+    lap_r = torch.sum(w * (ur * pr_n - ui * pi_n), dim=-1) - pr * rowsum
+    lap_i = torch.sum(w * (ur * pi_n + ui * pr_n), dim=-1) - pi * rowsum
     fixed = op.fixed_mask.to(rdt)
     return torch.stack(
         [(1.0 - fixed) * lap_r + fixed * pr,
@@ -84,7 +88,7 @@ def scalar_laplacian_sym(op, x: torch.Tensor) -> torch.Tensor:
     ``(S x)_i = sum_j w_ij (x_j - x_i)``; the mu-Poisson operator is
     ``L = diag(1/a) S`` and CG solves with ``S``."""
     w = op.w_sym.to(x.dtype)
-    return (torch.sum(w * x[op.nbr_site], dim=1)
+    return (torch.sum(w * x[..., op.nbr_site], dim=-1)
             - x * op.w_sym_rowsum.to(x.dtype))
 
 
@@ -92,7 +96,7 @@ def gradient_on_edges(op, x: torch.Tensor) -> torch.Tensor:
     """Discrete gradient of a site scalar, on edges: ``(x_j - x_i)/e_ij``."""
     e0 = op.edges[:, 0]
     e1 = op.edges[:, 1]
-    return (x[e1] - x[e0]) / op.edge_lengths.to(x.dtype)
+    return (x[..., e1] - x[..., e0]) / op.edge_lengths.to(x.dtype)
 
 
 def supercurrent_on_edges(op, U: torch.Tensor, psi: torch.Tensor
@@ -100,8 +104,8 @@ def supercurrent_on_edges(op, U: torch.Tensor, psi: torch.Tensor
     """Gauge-invariant supercurrent ``J_s = Im[psi_i^* (U psi_j - psi_i)]/e``
     on edges."""
     rdt = psi.dtype
-    psi0 = psi[op.edges[:, 0]]               # (E, 2) paired gathers
-    psi1 = psi[op.edges[:, 1]]
+    psi0 = psi[..., op.edges[:, 0], :]       # (E, 2) paired gathers
+    psi1 = psi[..., op.edges[:, 1], :]
     ur, ui = U[..., 0], U[..., 1]
     inv_len = 1.0 / op.edge_lengths.to(rdt)
     grad_r = (ur * psi1[..., 0] - ui * psi1[..., 1] - psi0[..., 0]) * inv_len
@@ -113,7 +117,7 @@ def divergence_on_sites(op, F_edge: torch.Tensor) -> torch.Tensor:
     """Divergence of an edge flux onto sites:
     ``(div F)_i = (1/a_i) sum_j F_ij s_ij``."""
     w = op.w_div.to(F_edge.dtype)
-    return torch.sum(w * F_edge[op.nbr_edge], dim=1)
+    return torch.sum(w * F_edge[..., op.nbr_edge], dim=-1)
 
 
 def neumann_boundary_term(op, mu_boundary: torch.Tensor,
@@ -121,7 +125,7 @@ def neumann_boundary_term(op, mu_boundary: torch.Tensor,
     """Inhomogeneous Neumann BC contribution to the mu-Poisson RHS:
     ``len_b/(2 a_i) * J_ext_b`` summed onto the boundary sites, in index
     order (deterministic; equal to ``np.add.at`` bit for bit)."""
-    vals = op.nbl_vals.to(mu_boundary.dtype) * mu_boundary[op.nbl_cols]
+    vals = op.nbl_vals.to(mu_boundary.dtype) * mu_boundary[..., op.nbl_cols]
     return ordered_scatter_sum(index_gather(op.nbl_rows), vals, n_sites)
 
 
@@ -154,7 +158,8 @@ def edge_quantity_to_sites(op, F_edge: torch.Tensor, n_sites: int,
 class PsiUpdateResult(NamedTuple):
     psi: torch.Tensor          # (N, 2) re/im pair
     abs_sq_psi: torch.Tensor   # (N,)
-    ok: torch.Tensor           # 0-d bool: discriminant >= 0 everywhere
+    ok: torch.Tensor           # bool, 0-d or (B,): discriminant >= 0
+                               # everywhere
 
 
 def implicit_euler_psi(
@@ -168,7 +173,9 @@ def implicit_euler_psi(
     u: float,
     dt,
 ) -> PsiUpdateResult:
-    """One implicit-Euler update of the order parameter (split complex).
+    """One implicit-Euler update of the order parameter (split complex);
+    with a member axis, ``dt`` may be a ``(B,)`` vector and ``ok`` is per
+    member.
 
     Solves the closed-form quadratic for ``|psi^{n+1}|^2``::
 
@@ -183,6 +190,8 @@ def implicit_euler_psi(
     """
     pr = psi[..., 0]
     pi = psi[..., 1]
+    if isinstance(dt, torch.Tensor) and dt.dim() == 1:
+        dt = dt[:, None]
     phase = mu * dt
     tr = torch.cos(phase)
     ti = -torch.sin(phase)   # U_t = tr + i ti
@@ -205,7 +214,8 @@ def implicit_euler_psi(
     # -Im(conj(w) z)^2 it equals 1 + 4c - 4 Im(conj(w) z)^2 exactly.
     im_wz = wr * zi - wi * zr
     discriminant = 1.0 + 4.0 * c - 4.0 * im_wz**2
-    ok = torch.all(discriminant >= 0.0)
+    ok = (torch.all(discriminant >= 0.0) if discriminant.dim() == 1
+          else torch.all(discriminant >= 0.0, dim=-1))
     sqrt_disc = torch.sqrt(torch.clamp(discriminant, min=0.0))
     new_sq = (2.0 * w2) / (two_c_1 + sqrt_disc)
     new_psi = torch.stack([wr - zr * new_sq, wi - zi * new_sq], dim=-1)

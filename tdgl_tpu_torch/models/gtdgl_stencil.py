@@ -6,8 +6,12 @@ order), for structured meshes (:mod:`tdgl_tpu_torch.fv.stencil_operators`):
 
 * All site fields are dense ``(Rp, Cp)`` tensors; edge fields are
   ``(3, Rp, Cp)`` (one slab per direction class). Neighbor access is
-  ``torch.roll`` — wrap-around reads are killed by zero weights at
-  masked/padded entries.
+  ``torch.roll`` over the last two dims — wrap-around reads are killed by
+  zero weights at masked/padded entries.
+* Every field may carry a leading member axis (a batch of runs of a
+  parameter sweep): ``(B, Rp, Cp)``, ``(B, 3, Rp, Cp)``; the stencil
+  planes are shared. A per-member ``dt`` is a ``(B,)`` vector and the psi
+  update's ``ok`` is then ``(B,)``.
 * The order parameter is split into real/imaginary tensors, as in the JAX
   package, so the state layout matches it field for field.
 """
@@ -28,13 +32,13 @@ _OFFS = tuple(EDGE_OFFSETS)
 def shift_p(x: torch.Tensor, k: int) -> torch.Tensor:
     """Value at ``(r, c) + OFFSETS[k]`` (the positive-edge neighbor)."""
     dr, dc = _OFFS[k]
-    return torch.roll(x, (-dr, -dc), dims=(0, 1))
+    return torch.roll(x, (-dr, -dc), dims=(-2, -1))
 
 
 def shift_m(x: torch.Tensor, k: int) -> torch.Tensor:
     """Value at ``(r, c) - OFFSETS[k]`` (the negative-edge origin)."""
     dr, dc = _OFFS[k]
-    return torch.roll(x, (dr, dc), dims=(0, 1))
+    return torch.roll(x, (dr, dc), dims=(-2, -1))
 
 
 class LinkPhases(NamedTuple):
@@ -67,8 +71,10 @@ def edge_link_phases(sten, A_edge: torch.Tensor,
     ui = -torch.sin(a)
     if not shifted:
         return LinkPhases(ur, ui, None, None)
-    urm = torch.stack([shift_m(ur[k], k) for k in range(3)])
-    uim = torch.stack([shift_m(ui[k], k) for k in range(3)])
+    urm = torch.stack([shift_m(ur[..., k, :, :], k) for k in range(3)],
+                      dim=-3)
+    uim = torch.stack([shift_m(ui[..., k, :, :], k) for k in range(3)],
+                      dim=-3)
     return LinkPhases(ur, ui, urm, uim)
 
 
@@ -108,8 +114,8 @@ def factor_link_phases(sten, A_edge: torch.Tensor) -> FactoredLinkPhases:
     separability (``a == f + g``); the solver checks in float64 at init.
     """
     a = edge_phase_angles(sten, A_edge)
-    f = a[:, :, 0]                      # (3, Rp)
-    g = a[:, 0, :] - a[:, 0, 0:1]      # (3, Cp)
+    f = a[..., :, :, 0]                      # (3, Rp)
+    g = a[..., :, 0, :] - a[..., :, 0, 0:1]  # (3, Cp)
     return FactoredLinkPhases(
         cf=torch.cos(f).contiguous(), sf=torch.sin(f).contiguous(),
         cg=torch.cos(g).contiguous(), sg=torch.sin(g).contiguous(),
@@ -119,10 +125,10 @@ def factor_link_phases(sten, A_edge: torch.Tensor) -> FactoredLinkPhases:
 def _factored_u_k(U: FactoredLinkPhases, k: int, dt: torch.dtype):
     """Reconstruct the (Rp, Cp) link planes ``ur_k``, ``ui_k`` from the
     factored row/col vectors (angle addition — no transcendentals)."""
-    cf = U.cf[k].to(dt)[:, None]
-    sf = U.sf[k].to(dt)[:, None]
-    cg = U.cg[k].to(dt)[None, :]
-    sg = U.sg[k].to(dt)[None, :]
+    cf = U.cf[..., k, :].to(dt)[..., :, None]
+    sf = U.sf[..., k, :].to(dt)[..., :, None]
+    cg = U.cg[..., k, :].to(dt)[..., None, :]
+    sg = U.sg[..., k, :].to(dt)[..., None, :]
     ur = cf * cg - sf * sg
     ui = -(sf * cg + cf * sg)
     return ur, ui
@@ -131,7 +137,7 @@ def _factored_u_k(U: FactoredLinkPhases, k: int, dt: torch.dtype):
 def _u_k(U, k: int, dt: torch.dtype):
     if isinstance(U, FactoredLinkPhases):
         return _factored_u_k(U, k, dt)
-    return U.ur[k].to(dt), U.ui[k].to(dt)
+    return U.ur[..., k, :, :].to(dt), U.ui[..., k, :, :].to(dt)
 
 
 def covariant_laplacian(
@@ -187,7 +193,7 @@ def gradient_on_edges(sten, x: torch.Tensor) -> torch.Tensor:
     """Discrete gradient on positive edges: ``(x_{+k} - x)/len_k``."""
     inv_len = sten.inv_len.to(x.dtype)
     return torch.stack(
-        [(shift_p(x, k) - x) * inv_len[k] for k in range(3)]
+        [(shift_p(x, k) - x) * inv_len[k] for k in range(3)], dim=-3
     )
 
 
@@ -205,15 +211,15 @@ def supercurrent_on_edges(
         grad_r = ur * pr_p - ui * pi_p - pr
         grad_i = ur * pi_p + ui * pr_p - pi
         out.append((pr * grad_i - pi * grad_r) * sten.inv_len[k].to(dt))
-    return torch.stack(out)
+    return torch.stack(out, dim=-3)
 
 
 def divergence_on_sites(sten, F_edge: torch.Tensor) -> torch.Tensor:
     """Divergence of a (3, Rp, Cp) edge flux onto sites."""
     dt = F_edge.dtype
-    acc = torch.zeros_like(F_edge[0])
+    acc = torch.zeros_like(F_edge[..., 0, :, :])
     for k in range(3):
-        dF = sten.dual[k].to(dt) * F_edge[k]
+        dF = sten.dual[k].to(dt) * F_edge[..., k, :, :]
         acc = acc + dF - shift_m(dF, k)
     return acc * sten.inv_area.to(dt)
 
@@ -227,10 +233,10 @@ def edge_quantity_to_sites(sten, F_edge: torch.Tensor) -> torch.Tensor:
     dt = F_edge.dtype
     dirs = sten.edge_dirs.to(dt)
     dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=1, keepdim=True))
-    sx = torch.zeros_like(F_edge[0])
-    sy = torch.zeros_like(F_edge[0])
+    sx = torch.zeros_like(F_edge[..., 0, :, :])
+    sy = torch.zeros_like(F_edge[..., 0, :, :])
     for k in range(3):
-        both = F_edge[k] + shift_m(F_edge[k], k)
+        both = F_edge[..., k, :, :] + shift_m(F_edge[..., k, :, :], k)
         sx = sx + both * dirs[k, 0]
         sy = sy + both * dirs[k, 1]
     denom = 2.0 * sten.counts.to(dt)
@@ -298,13 +304,15 @@ def ordered_scatter_sum(gather: NeumannGather, vals: torch.Tensor,
                         size: int) -> torch.Tensor:
     """``out = zeros(size); out[idx[j]] += vals[j]`` through ``gather``,
     each target's terms added left to right (deterministic, the order of
-    ``np.add.at``)."""
-    rows = torch.cat([vals, vals.new_zeros(1)])[gather.table]
-    acc = vals.new_zeros(len(gather.targets))
-    for m in range(rows.shape[1]):
-        acc = acc + rows[:, m]
-    flat = torch.zeros(size, dtype=vals.dtype, device=vals.device)
-    return flat.index_copy(0, gather.targets, acc)
+    ``np.add.at``); per member for ``(B, len(idx))`` values."""
+    lead = vals.shape[:-1]
+    rows = torch.cat([vals, vals.new_zeros(lead + (1,))],
+                     dim=-1)[..., gather.table]
+    acc = vals.new_zeros(lead + (len(gather.targets),))
+    for m in range(rows.shape[-1]):
+        acc = acc + rows[..., m]
+    flat = torch.zeros(lead + (size,), dtype=vals.dtype, device=vals.device)
+    return flat.index_copy(-1, gather.targets, acc)
 
 
 def neumann_boundary_term(sten, mu_boundary: torch.Tensor) -> torch.Tensor:
@@ -327,7 +335,8 @@ class PsiUpdateResult(NamedTuple):
     psi_r: torch.Tensor
     psi_i: torch.Tensor
     abs_sq_psi: torch.Tensor
-    ok: torch.Tensor  # 0-d bool: discriminant nonnegative on valid sites
+    ok: torch.Tensor  # bool, 0-d or (B,): discriminant nonnegative on
+                      # valid sites
 
 
 def implicit_euler_psi(
@@ -343,8 +352,12 @@ def implicit_euler_psi(
     dt,
 ) -> PsiUpdateResult:
     """One implicit-Euler update of the order parameter (split complex):
-    the closed-form quadratic with the cancellation-free discriminant."""
+    the closed-form quadratic with the cancellation-free discriminant.
+    With a member axis, ``dt`` may be a ``(B,)`` vector and ``ok`` is
+    per member."""
     rdt = pr.dtype
+    if isinstance(dt, torch.Tensor) and dt.dim() == 1:
+        dt = dt[:, None, None]
     phase = mu * dt
     tr = torch.cos(phase)
     ti = -torch.sin(phase)   # U_t = tr + i ti
@@ -365,7 +378,9 @@ def implicit_euler_psi(
     im_wz = wr * zi - wi * zr
     discriminant = 1.0 + 4.0 * c - 4.0 * im_wz**2
     valid = sten.valid.to(rdt)
-    ok = torch.all(torch.where(valid > 0, discriminant, 1.0) >= 0.0)
+    good = torch.where(valid > 0, discriminant, 1.0) >= 0.0
+    ok = (torch.all(good) if good.dim() == 2
+          else torch.all(good.flatten(-2), dim=-1))
     sqrt_disc = torch.sqrt(torch.clamp(discriminant, min=0.0))
     new_sq = (2.0 * w2) / (two_c_1 + sqrt_disc)
     new_r = (wr - zr * new_sq) * valid

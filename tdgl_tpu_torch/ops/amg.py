@@ -14,7 +14,8 @@ preconditioner.
   post-smooth``. The restriction sums each aggregate's members through a
   host-built table (:class:`AMGTensors`, ``members``), in site order, so
   no atomics are involved; the prolongation is a gather and the coarse
-  solve a dense ``(nc, nc) @ (nc,)`` product.
+  solve a dense ``(nc, nc) @ (nc,)`` product. A ``(B, N)`` residual (the
+  members of a sweep) runs the same cycle per member.
 """
 
 from __future__ import annotations
@@ -120,9 +121,16 @@ def make_amg_apply(amg_omega: float):
         x = amg_omega * inv_diag * r
         # Coarse correction.
         r2 = r - apply_A(x)
-        rc = torch.sum(torch.cat([r2, r2.new_zeros(1)])[amg.members], dim=1)
-        xc = amg.Ac_inv.to(rdtype) @ rc
-        x = x + xc[amg.cluster_ids]
+        if r.dim() == 1:
+            rc = torch.sum(torch.cat([r2, r2.new_zeros(1)])[amg.members],
+                           dim=1)
+            xc = amg.Ac_inv.to(rdtype) @ rc
+        else:
+            # (B, N) members: the same gathers and one matmul for all.
+            pad = torch.cat([r2, r2.new_zeros(r2.shape[0], 1)], dim=1)
+            rc = torch.sum(pad[:, amg.members], dim=-1)
+            xc = rc @ amg.Ac_inv.to(rdtype).T
+        x = x + xc[..., amg.cluster_ids]
         # Post-smooth (symmetric cycle).
         r3 = r - apply_A(x)
         x = x + amg_omega * inv_diag * r3

@@ -12,6 +12,17 @@ tolerance-stopped loops read their stopping test once per iteration (and
 once before the first), which is what a data-dependent loop costs in eager
 PyTorch.
 
+**Members.** Every solver also takes a batch of independent systems (the
+members of a parameter sweep), vectors with a leading member axis, when
+``dims`` names the per-member vector dims (``(-2, -1)`` on the grid,
+``(-1,)`` on the ELL tables). Dot products, ``alpha``, ``beta``, ``rz``,
+tolerances, residuals and iteration counts are then ``(B,)``, and the
+stopping loop runs while any member continues, keeping a finished member's
+``x, r, z, p, rz`` with ``torch.where`` (the semantics of a vmapped
+``lax.while_loop``) at one host read per iteration for the whole batch.
+:func:`solve_mu_poisson_grid` and :func:`solve_mu_poisson` batch when the
+right-hand side has the member axis.
+
 :func:`solve_mu_poisson_grid` solves on the padded grid of the structured
 backend, :func:`solve_mu_poisson` on the ELL tables of the unstructured
 one.
@@ -26,8 +37,19 @@ import torch
 
 class CGResult(NamedTuple):
     x: torch.Tensor
-    iterations: torch.Tensor  # 0-d int32
-    residual_norm: torch.Tensor  # 0-d: final ||r|| / ||b||
+    iterations: torch.Tensor  # int32, 0-d or (B,)
+    residual_norm: torch.Tensor  # 0-d or (B,): final ||r|| / ||b||
+
+
+def _dot(a, b, dims):
+    """``sum(a * b)``, per member over ``dims`` when given."""
+    return torch.sum(a * b) if dims is None else torch.sum(a * b, dim=dims)
+
+
+def member_view(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-member ``(B,)`` tensor shaped to broadcast against the
+    member field ``x`` (a 0-d one as it is)."""
+    return s if s.dim() == 0 else s.reshape(s.shape + (1,) * (x.dim() - 1))
 
 
 def _preconditioner(precond, precond_inv_diag, rdtype):
@@ -52,39 +74,45 @@ def _tol_sq(tol: float, b_norm_sq: torch.Tensor) -> torch.Tensor:
         * b_norm_sq
 
 
-def _iteration(apply_A, M_inv, project, state, reproject=True):
+def _iteration(apply_A, M_inv, project, state, reproject=True, dims=None):
     """One PCG iteration with breakdown freeze: in finite precision the
     curvature p^T A p can collapse to <= 0 once the residual stagnates;
     stepping with a clamped denominator would blow up x, so freeze."""
     x, r, z, p, rz = state
     tiny = torch.finfo(r.dtype).tiny
     Ap = apply_A(p)
-    pAp = torch.sum(p * Ap)
+    pAp = _dot(p, Ap, dims)
     healthy = torch.logical_and(torch.isfinite(pAp), pAp > tiny)
     alpha = torch.where(healthy, rz / torch.where(healthy, pAp, 1.0), 0.0)
-    x_new = x + alpha * p
-    r_new = r - alpha * Ap
+    x_new = x + member_view(alpha, p) * p
+    r_new = r - member_view(alpha, Ap) * Ap
     if reproject:
         r_new = project(r_new)
     z_new = M_inv(r_new)
-    rz_new = torch.sum(r_new * z_new)
+    rz_new = _dot(r_new, z_new, dims)
     beta = torch.where(
         healthy, rz_new / torch.where(torch.abs(rz) > 0, rz, 1.0), 0.0
     )
-    p_new = z_new + beta * p
+    p_new = z_new + member_view(beta, p) * p
 
     def keep(old, new):
-        return torch.where(healthy, new, old)
+        return torch.where(member_view(healthy, new), new, old)
 
     return (keep(x, x_new), keep(r, r_new), keep(z, z_new),
             keep(p, p_new), keep(rz, rz_new), healthy)
 
 
-def _stopped_loop(apply_A, M_inv, project, state, tol_sq, k, maxiter):
+def _stopped_loop(apply_A, M_inv, project, state, tol_sq, k, maxiter,
+                  dims=None):
     """Tolerance-stopped PCG iterations from ``state``, until
-    ``||r||^2 <= tol_sq``, a breakdown, or ``maxiter`` total iterations."""
+    ``||r||^2 <= tol_sq``, a breakdown, or ``maxiter`` total iterations.
+    Returns ``(x, r, k)``: ``k`` an int, or per member an int32 ``(B,)``
+    tensor."""
     x, r, z, p, rz = state
-    go = torch.sum(r * r) > tol_sq
+    go = _dot(r, r, dims) > tol_sq
+    if dims is not None:
+        return _stopped_members(apply_A, M_inv, project, state, tol_sq, k,
+                                maxiter, dims, go)
     # One host read per test: the residual test and the breakdown flag
     # are read together.
     while k < maxiter and bool(go):
@@ -93,6 +121,34 @@ def _stopped_loop(apply_A, M_inv, project, state, tol_sq, k, maxiter):
         k += 1
         go = torch.logical_and(healthy, torch.sum(r * r) > tol_sq)
     return x, r, k
+
+
+def _stopped_members(apply_A, M_inv, project, state, tol_sq, k, maxiter,
+                     dims, go):
+    """:func:`_stopped_loop` for a batch: iterate while any member
+    continues; a member that has stopped keeps its state (``torch.where``
+    on its ``go`` flag) and its count, so each member ends where it would
+    alone. One host read of ``any(go)`` per iteration."""
+    counts = torch.full(go.shape, k, dtype=torch.int32, device=go.device)
+    while k < maxiter and bool(torch.any(go)):
+        new = _iteration(apply_A, M_inv, project, state, dims=dims)
+        state = tuple(torch.where(member_view(go, n), n, o)
+                      for o, n in zip(state, new[:5]))
+        counts = counts + go.to(torch.int32)
+        k += 1
+        r = state[1]
+        go = go & new[5] & (_dot(r, r, dims) > tol_sq)
+    return state[0], state[1], counts
+
+
+def _count(b, k, dims):
+    """An iteration count as the result's int32 tensor."""
+    if isinstance(k, torch.Tensor):
+        return k
+    if dims is None:
+        return b.new_full((), k, dtype=torch.int32)
+    return torch.full(b.shape[:b.dim() - len(dims)], k, dtype=torch.int32,
+                      device=b.device)
 
 
 def cg_solve(
@@ -105,23 +161,24 @@ def cg_solve(
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     *,
     project_fn: Callable[[torch.Tensor], torch.Tensor],
+    dims=None,
 ) -> CGResult:
     """Preconditioned conjugate gradients with null-space deflation
     (``project_fn``), stopped at ``||r|| <= tol ||b||`` (floored at 50
-    eps)."""
+    eps); per member when ``dims`` is given."""
     rdtype = b.dtype
     M_inv = _preconditioner(precond, precond_inv_diag, rdtype)
     b = project_fn(b)
     x0 = project_fn(x0)
-    b_norm_sq = torch.clamp(torch.sum(b * b), min=torch.finfo(rdtype).tiny)
+    b_norm_sq = torch.clamp(_dot(b, b, dims), min=torch.finfo(rdtype).tiny)
     tol_sq = _tol_sq(tol, b_norm_sq)
     r0 = project_fn(b - apply_A(x0))
     z0 = M_inv(r0)
-    rz0 = torch.sum(r0 * z0)
+    rz0 = _dot(r0, z0, dims)
     x, r, k = _stopped_loop(apply_A, M_inv, project_fn, (x0, r0, z0, z0, rz0),
-                            tol_sq, 0, maxiter)
-    res = torch.sqrt(torch.sum(r * r) / b_norm_sq)
-    return CGResult(project_fn(x), b.new_full((), k, dtype=torch.int32), res)
+                            tol_sq, 0, maxiter, dims)
+    res = torch.sqrt(_dot(r, r, dims) / b_norm_sq)
+    return CGResult(project_fn(x), _count(b, k, dims), res)
 
 
 def cg_solve_fixed(
@@ -133,6 +190,7 @@ def cg_solve_fixed(
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     *,
     project_fn: Callable[[torch.Tensor], torch.Tensor],
+    dims=None,
 ) -> CGResult:
     """Fixed-iteration preconditioned CG: exactly ``n_iters`` iterations, no
     stopping test and no host read, so the solve is a smooth map of its
@@ -143,14 +201,14 @@ def cg_solve_fixed(
     x0 = project_fn(x0)
     r0 = project_fn(b - apply_A(x0))
     z0 = M_inv(r0)
-    state = (x0, r0, z0, z0, torch.sum(r0 * z0))
+    state = (x0, r0, z0, z0, _dot(r0, z0, dims))
     for _ in range(n_iters):
-        state = _iteration(apply_A, M_inv, project_fn, state)[:5]
+        state = _iteration(apply_A, M_inv, project_fn, state,
+                           dims=dims)[:5]
     x, r = state[0], state[1]
-    b_norm_sq = torch.clamp(torch.sum(b * b), min=torch.finfo(rdtype).tiny)
-    res = torch.sqrt(torch.sum(r * r) / b_norm_sq)
-    return CGResult(project_fn(x), b.new_full((), n_iters, dtype=torch.int32),
-                    res)
+    b_norm_sq = torch.clamp(_dot(b, b, dims), min=torch.finfo(rdtype).tiny)
+    res = torch.sqrt(_dot(r, r, dims) / b_norm_sq)
+    return CGResult(project_fn(x), _count(b, n_iters, dims), res)
 
 
 def cg_solve_topup(
@@ -164,6 +222,7 @@ def cg_solve_topup(
     precond_inv_diag: Optional[torch.Tensor] = None,
     *,
     project_fn: Callable[[torch.Tensor], torch.Tensor],
+    dims=None,
 ) -> CGResult:
     """Fixed-count CG with a tolerance-stopped top-up.
 
@@ -177,18 +236,18 @@ def cg_solve_topup(
     M_inv = _preconditioner(precond, precond_inv_diag, rdtype)
     b = project_fn(b)
     x0 = project_fn(x0)
-    b_norm_sq = torch.clamp(torch.sum(b * b), min=torch.finfo(rdtype).tiny)
+    b_norm_sq = torch.clamp(_dot(b, b, dims), min=torch.finfo(rdtype).tiny)
     tol_sq = _tol_sq(tol, b_norm_sq)
     r0 = project_fn(b - apply_A(x0))
     z0 = M_inv(r0)
-    state = (x0, r0, z0, z0, torch.sum(r0 * z0))
+    state = (x0, r0, z0, z0, _dot(r0, z0, dims))
     for _ in range(base_iters):
         state = _iteration(apply_A, M_inv, project_fn, state,
-                           reproject=False)[:5]
+                           reproject=False, dims=dims)[:5]
     x, r, k = _stopped_loop(apply_A, M_inv, project_fn, state, tol_sq,
-                            base_iters, maxiter)
-    res = torch.sqrt(torch.sum(r * r) / b_norm_sq)
-    return CGResult(project_fn(x), b.new_full((), k, dtype=torch.int32), res)
+                            base_iters, maxiter, dims)
+    res = torch.sqrt(_dot(r, r, dims) / b_norm_sq)
+    return CGResult(project_fn(x), _count(b, k, dims), res)
 
 
 def solve_mu_poisson_grid(
@@ -208,16 +267,18 @@ def solve_mu_poisson_grid(
     sites stay exactly zero. ``amg`` (a :class:`HexMGData` of tensors)
     selects the deep-multigrid preconditioner, else Jacobi. ``fixed_iters``
     runs a fixed count (:func:`cg_solve_fixed`), with ``topup`` appending
-    tolerance-stopped iterations (:func:`cg_solve_topup`).
+    tolerance-stopped iterations (:func:`cg_solve_topup`). A ``(B, Rp,
+    Cp)`` ``rhs`` solves B independent systems, one per member.
     """
     from ..models.gtdgl_stencil import scalar_laplacian_sym
 
     rdtype = rhs.dtype
     valid = sten.valid.to(rdtype)
     n_valid = torch.clamp(torch.sum(valid), min=1.0)
+    dims = (-2, -1) if rhs.dim() == 3 else None
 
     def project(v):
-        return (v - torch.sum(v * valid) / n_valid) * valid
+        return (v - member_view(_dot(v, valid, dims), v) / n_valid) * valid
 
     def apply_A(x):
         return -scalar_laplacian_sym(sten, x)
@@ -244,15 +305,15 @@ def solve_mu_poisson_grid(
             return cg_solve_topup(
                 apply_A, b, mu_prev, fixed_iters, tol=tol, maxiter=maxiter,
                 precond_inv_diag=inv_diag, precond=precond,
-                project_fn=project,
+                project_fn=project, dims=dims,
             )
         return cg_solve_fixed(
             apply_A, b, mu_prev, fixed_iters, precond_inv_diag=inv_diag,
-            precond=precond, project_fn=project,
+            precond=precond, project_fn=project, dims=dims,
         )
     return cg_solve(
         apply_A, b, mu_prev, precond_inv_diag=inv_diag, tol=tol,
-        maxiter=maxiter, precond=precond, project_fn=project,
+        maxiter=maxiter, precond=precond, project_fn=project, dims=dims,
     )
 
 
@@ -276,15 +337,19 @@ def solve_mu_poisson(
     :class:`~tdgl_tpu_torch.ops.amg.AMGTensors`) is given, warm-started
     from ``mu_prev``; the constant mode is deflated with the plain mean.
     ``fixed_iters`` and ``topup`` select the solver as in
-    :func:`solve_mu_poisson_grid`.
+    :func:`solve_mu_poisson_grid`. A ``(B, N)`` ``rhs`` solves B
+    independent systems, one per member.
     """
     from ..models.gtdgl import scalar_laplacian_sym
 
     rdtype = rhs.dtype
     areas = op.areas.to(rdtype)
+    dims = (-1,) if rhs.dim() == 2 else None
 
     def project(v):
-        return v - torch.mean(v)
+        if dims is None:
+            return v - torch.mean(v)
+        return v - torch.mean(v, dim=-1, keepdim=True)
 
     def apply_A(x):
         return -scalar_laplacian_sym(op, x)
@@ -308,13 +373,13 @@ def solve_mu_poisson(
             return cg_solve_topup(
                 apply_A, b, mu_prev, fixed_iters, tol=tol, maxiter=maxiter,
                 precond_inv_diag=inv_diag, precond=precond,
-                project_fn=project,
+                project_fn=project, dims=dims,
             )
         return cg_solve_fixed(
             apply_A, b, mu_prev, fixed_iters, precond_inv_diag=inv_diag,
-            precond=precond, project_fn=project,
+            precond=precond, project_fn=project, dims=dims,
         )
     return cg_solve(
         apply_A, b, mu_prev, precond_inv_diag=inv_diag, tol=tol,
-        maxiter=maxiter, precond=precond, project_fn=project,
+        maxiter=maxiter, precond=precond, project_fn=project, dims=dims,
     )

@@ -8,7 +8,8 @@ offsets with one dense (R_l, C_l) weight plane each — and every transfer
 is a reshape-sum / broadcast plus one stencil apply. The coarsest level is
 a dense pseudo-inverse. :func:`convert.hexmg_to_torch` moves the level
 arrays onto a device; :func:`make_hexmg_apply` is the V-cycle, run in the
-working dtype.
+working dtype, on one ``(R, C)`` grid or on a batch ``(B, R, C)`` of
+independent right-hand sides (the members of a sweep) at once.
 """
 
 from __future__ import annotations
@@ -170,7 +171,7 @@ def level_apply(mg: HexMGData, lvl: int, x: torch.Tensor) -> torch.Tensor:
     """
     W = mg.level_arrays[lvl]["W"].to(x.dtype)
     offs = mg.offsets[lvl]
-    R, C = x.shape
+    R, C = x.shape[-2:]
     pr = max(max(abs(dr) for dr, _ in offs), 1)
     pc = max(max(abs(dc) for _, dc in offs), 1)
     xp = F.pad(x, (pc, pc, pr, pr))
@@ -185,10 +186,10 @@ def level_apply(mg: HexMGData, lvl: int, x: torch.Tensor) -> torch.Tensor:
     prods = torch.stack([W[idx[d]] * x for d in canon])
     pp = F.pad(prods, (pc, pc, pr, pr))
     for i, (dr, dc) in enumerate(canon):
-        acc = acc + W[idx[(dr, dc)]] * xp[pr + dr:pr + dr + R,
+        acc = acc + W[idx[(dr, dc)]] * xp[..., pr + dr:pr + dr + R,
                                           pc + dc:pc + dc + C]
         # y[r, c] += W_{-d}[r, c] x[r-dr, c-dc] = (W_d ⊙ x)[r-dr, c-dc]
-        acc = acc + pp[i, pr - dr:pr - dr + R, pc - dc:pc - dc + C]
+        acc = acc + pp[i, ..., pr - dr:pr - dr + R, pc - dc:pc - dc + C]
     return acc
 
 
@@ -201,12 +202,13 @@ def make_hexmg_apply(amg_omega: float):
     def block_sum(mg, lvl, r):
         """2x2 block-sum restriction."""
         R, C = mg.shapes[lvl]
-        return r.reshape(R // 2, 2, C // 2, 2).sum(dim=(1, 3))
+        return r.reshape(r.shape[:-2] + (R // 2, 2, C // 2, 2)).sum(
+            dim=(-3, -1))
 
     def block_broadcast(mg, lvl, xc):
         """Transpose of :func:`block_sum` (2x2 broadcast)."""
         return torch.repeat_interleave(
-            torch.repeat_interleave(xc, 2, dim=0), 2, dim=1)
+            torch.repeat_interleave(xc, 2, dim=-2), 2, dim=-1)
 
     def smooth_P_T(mg, lvl, r):
         """P^T r = P0^T (r - omega_p A (D^+ r)) then 2x2 block sum."""
@@ -231,7 +233,11 @@ def make_hexmg_apply(amg_omega: float):
         lev = mg.level_arrays[lvl]
         if "Ainv" in lev:
             R, C = mg.shapes[lvl]
-            return (lev["Ainv"].to(b.dtype) @ b.reshape(-1)).reshape(R, C)
+            Ainv = lev["Ainv"].to(b.dtype)
+            if b.dim() == 2:
+                return (Ainv @ b.reshape(-1)).reshape(R, C)
+            # One matmul for all members.
+            return (b.reshape(b.shape[0], -1) @ Ainv.T).reshape(b.shape)
         inv_diag = lev["inv_diag"].to(b.dtype)
         x = omega * inv_diag * b
         r = b - level_apply(mg, lvl, x)

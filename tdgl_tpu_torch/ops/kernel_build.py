@@ -123,13 +123,13 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i
         # pr pi old_sq mu eps w sym_diag inv_area fixed valid ur ui cf sf
         # cg sg factored dt gamma u out_r out_i out_sq flag ok rows cols
-        # stream
-        fn.argtypes = [p] * 16 + [i, p, d, d, p, p, p, p, p, i, i, p]
+        # members strides stream
+        fn.argtypes = [p] * 16 + [i, p, d, d, p, p, p, p, p, i, i, i, p, p]
     for name in ("tdgl_poisson_rhs_f32", "tdgl_poisson_rhs_f64"):
         fn = getattr(lib, name)
         fn.restype = i
         # pr pi ur ui cf sf cg sg factored inv_len dual dA_dt inv_area
-        # neumann rhs js rows cols stream
-        fn.argtypes = [p] * 8 + [i] + [p] * 7 + [i, i, p]
+        # neumann rhs js rows cols members strides stream
+        fn.argtypes = [p] * 8 + [i] + [p] * 7 + [i, i, i, p, p]
     _lib = lib
     return lib

@@ -25,11 +25,22 @@ one go. The RHS kernel has a second form that also writes the edge
 supercurrent ``J_s`` (``with_supercurrent``), which the screened step
 needs. Kernel launches are counted in ``fused_psi_update.launches`` and
 ``fused_poisson_rhs.launches`` (both RHS forms).
+
+**Members.** Both kernels also run a batch of ``B`` runs on one grid in
+one launch (a parameter sweep): ``pr``/``pi`` of shape ``(B, rows, cols)``
+make the call batched. Every per-call or bound operand is then either
+shared by all members (its single-run shape) or per member (a leading
+``B`` axis): ``mu``, ``epsilon``, ``abs_sq``, the link form, ``dA_dt`` and
+the Neumann term; ``dt`` is a ``(B,)`` vector (or one value for all).
+The stencil planes are always shared. Outputs gain the leading axis and
+``ok`` is ``(B,)``. The plain versions broadcast the same way. A call with
+``(rows, cols)`` planes is a single run, launched as before (B = 1).
 """
 
 from __future__ import annotations
 
 import copy
+import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -39,6 +50,8 @@ from ..models import gtdgl_stencil as gs
 
 def plain_psi_update(gamma, u, sten, U, pr, pi, mu, epsilon, dt,
                      abs_sq=None):
+    """The psi kernel's plain version; with ``(B, rows, cols)`` planes a
+    ``(B,)`` ``dt`` and ``ok`` are per member."""
     old_sq = pr * pr + pi * pi if abs_sq is None else abs_sq
     res = gs.implicit_euler_psi(sten, U, pr, pi, old_sq, mu, epsilon, gamma,
                                 u, dt)
@@ -76,6 +89,26 @@ def _check(name: str, t, shape, device, dtype) -> int:
     return t.data_ptr()
 
 
+def _check_member(name: str, t, shape, device, dtype, members=None):
+    """Validate an operand that all members share (shape ``shape``) or
+    that has one slice per member (``(B,) + shape``; ``members``, where
+    given, must equal B). Returns ``(pointer, B or None, member stride in
+    elements)``."""
+    shape = torch.Size(shape)
+    if isinstance(t, torch.Tensor) and t.dim() == len(shape) + 1:
+        b = t.shape[0]
+        if members is not None and b != members:
+            raise ValueError(f"{name} has {b} members, expected {members}")
+        ptr = _check(name, t, torch.Size((b,)) + shape, device, dtype)
+        return ptr, b, shape.numel()
+    return _check(name, t, shape, device, dtype), None, 0
+
+
+def _same_members(name: str, b, members: int) -> None:
+    if b is not None and b != members:
+        raise ValueError(f"{name} has {b} members, expected {members}")
+
+
 def _tile() -> Tuple[int, int]:
     """The kernels' (rows, cols) site tile, as the library reports it."""
     from . import kernel_build
@@ -100,18 +133,25 @@ def _raise_on_error(name: str, rc: int) -> None:
                            f" (cudaGetLastError() = {rc})")
 
 
-# The psi kernel's flag word (failing blocks << 16 | blocks counted), one
-# per device, zeroed once. The kernel's last block resets it, so launches
-# on one stream reuse it.
+# The psi kernel's flag words (per member: failing blocks << 16 | blocks
+# counted), one buffer per device, zeroed once and grown to the largest
+# batch launched. Each member's last block resets its word, so launches on
+# one stream reuse them.
 _FLAG_WORDS: Dict[torch.device, torch.Tensor] = {}
 
 
-def _flag_word(device: torch.device) -> torch.Tensor:
-    word = _FLAG_WORDS.get(device)
-    if word is None:
-        word = torch.zeros(1, dtype=torch.int32, device=device)
-        _FLAG_WORDS[device] = word
-    return word
+def _flag_word(device: torch.device, members: int = 1) -> torch.Tensor:
+    words = _FLAG_WORDS.get(device)
+    if words is None or words.numel() < members:
+        words = torch.zeros(max(members, 1), dtype=torch.int32,
+                            device=device)
+        _FLAG_WORDS[device] = words
+    return words
+
+
+def _strides(*values: int):
+    """A member-stride array for the kernels (int64, in slot order)."""
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 class StencilOperands:
@@ -154,6 +194,19 @@ class StencilOperands:
     def ptr(self, name, t, shape) -> int:
         return _check(name, t, shape, self.device, self.dtype)
 
+    def like_ptr(self, name, t, shape, members) -> int:
+        """The pointer of an operand batched as its partner: ``shape``
+        when ``members`` is None, else ``(members,) + shape``."""
+        if members is not None:
+            shape = (members,) + tuple(shape)
+        return _check(name, t, torch.Size(shape), self.device, self.dtype)
+
+    def member_ptr(self, name, t, shape, members=None):
+        """``(pointer, B or None, member stride)`` of an operand that is
+        shared (``shape``) or per member (``(B,) + shape``)."""
+        return _check_member(name, t, shape, self.device, self.dtype,
+                             members)
+
 
 class StepOperands:
     """The operands of both step kernels: a :class:`StencilOperands` and
@@ -165,7 +218,9 @@ class StepOperands:
     :meth:`rebind` replaces some of them and checks only those, so a chunk
     whose operands are fixed binds once, and a step whose links, ``dA_dt``
     or Neumann term change rebinds just them. :meth:`psi_update` and
-    :meth:`poisson_rhs` check only their per-call tensors.
+    :meth:`poisson_rhs` check only their per-call tensors. Each bound
+    operand may carry a leading member axis (see the module docstring);
+    its member count is checked against the call's.
     """
 
     def __init__(self, sten, U=None, dA_dt=None, neumann_term=None):
@@ -178,6 +233,12 @@ class StepOperands:
         self.U = self.dA_dt = self.neumann_term = None
         self.factored, self.links = 0, None
         self.dA_ptr = self.neumann_ptr = None
+        # Member counts (None: shared) and strides of the bound operands:
+        # links (raw planes, factored row and column vectors), dA_dt,
+        # Neumann term.
+        self.link_members = self.dA_members = self.neumann_members = None
+        self.link_strides = (0, 0, 0)
+        self.dA_stride = self.neumann_stride = 0
         self._bind(U, dA_dt, neumann_term)
 
     def _bind(self, U, dA_dt, neumann_term) -> None:
@@ -186,30 +247,37 @@ class StepOperands:
             self.U = U
             if not st.on_cpu:
                 R, C = self.shape
+                chk = st.member_ptr
                 if isinstance(U, gs.FactoredLinkPhases):
                     self.factored = 1
-                    self.links = (None, None,
-                                  st.ptr("U.cf", U.cf, (3, R)),
-                                  st.ptr("U.sf", U.sf, (3, R)),
-                                  st.ptr("U.cg", U.cg, (3, C)),
-                                  st.ptr("U.sg", U.sg, (3, C)))
+                    cf, b, row = chk("U.cf", U.cf, (3, R))
+                    like = st.like_ptr
+                    self.links = (None, None, cf,
+                                  like("U.sf", U.sf, (3, R), b),
+                                  like("U.cg", U.cg, (3, C), b),
+                                  like("U.sg", U.sg, (3, C), b))
+                    col = 0 if b is None else 3 * C
+                    self.link_members, self.link_strides = b, (0, row, col)
                 elif isinstance(U, gs.LinkPhases):
                     self.factored = 0
-                    self.links = (st.ptr("U.ur", U.ur, st.edge_shape),
-                                  st.ptr("U.ui", U.ui, st.edge_shape),
-                                  None, None, None, None)
+                    ur, b, plane = chk("U.ur", U.ur, st.edge_shape)
+                    ui = st.like_ptr("U.ui", U.ui, st.edge_shape, b)
+                    self.links = (ur, ui, None, None, None, None)
+                    self.link_members, self.link_strides = b, (plane, 0, 0)
                 else:
                     raise TypeError(f"unsupported link phases"
                                     f" {type(U).__name__}")
         if dA_dt is not None:
             self.dA_dt = dA_dt
             if not st.on_cpu:
-                self.dA_ptr = st.ptr("dA_dt", dA_dt, st.edge_shape)
+                self.dA_ptr, self.dA_members, self.dA_stride = \
+                    st.member_ptr("dA_dt", dA_dt, st.edge_shape)
         if neumann_term is not None:
             self.neumann_term = neumann_term
             if not st.on_cpu:
-                self.neumann_ptr = st.ptr("neumann_term", neumann_term,
-                                          self.shape)
+                self.neumann_ptr, self.neumann_members, \
+                    self.neumann_stride = st.member_ptr(
+                        "neumann_term", neumann_term, self.shape)
 
     def rebind(self, U=None, dA_dt=None, neumann_term=None
                ) -> "StepOperands":
@@ -219,20 +287,45 @@ class StepOperands:
         new._bind(U, dA_dt, neumann_term)
         return new
 
-    def _plane(self, name, t) -> int:
-        return _check(name, t, self.shape, self.device, self.dtype)
+    def _members(self, pr) -> int:
+        """The call's member count: ``B`` for ``(B, rows, cols)`` psi
+        planes, else 1 (a single run); checks the bound links against
+        it."""
+        members = pr.shape[0] if pr.dim() == 3 else 1
+        if pr.dim() == 2:
+            if self.link_members is not None:
+                raise ValueError("member-batched links need (B, rows,"
+                                 " cols) psi planes")
+        else:
+            _same_members("U", self.link_members, members)
+        return members
+
+    def _plane(self, name, t, members) -> Tuple[int, int]:
+        """``(pointer, member stride)`` of a site plane: the psi planes
+        and outputs always carry the call's member axis when it has one;
+        another plane may be shared."""
+        if members is None:
+            return _check(name, t, self.shape, self.device, self.dtype), 0
+        ptr, b, stride = self.stencil.member_ptr(name, t, self.shape,
+                                                 members)
+        return ptr, stride
 
     def _need_links(self) -> None:
         if self.U is None:
             raise ValueError("no link phases bound (StepOperands(..., U))")
 
-    def _dt_ptr(self, dt):
-        """``(pointer, tensor)`` of the device scalar dt (a float makes a
-        one-element tensor, i.e. one fill on the device)."""
+    def _dt_ptr(self, dt, members):
+        """``(pointer, member stride, tensor)`` of dt: a device scalar, or
+        a ``(B,)`` vector for a batch (a float makes a one-element tensor,
+        i.e. one fill on the device)."""
         if not isinstance(dt, torch.Tensor):
             dt = torch.full((), float(dt), dtype=self.dtype,
                             device=self.device)
-        return _check("dt", dt.reshape(()), (), self.device, self.dtype), dt
+        if members is not None and dt.dim() == 1:
+            ptr = _check("dt", dt, (members,), self.device, self.dtype)
+            return ptr, 1, dt
+        return _check("dt", dt.reshape(()), (), self.device, self.dtype), \
+            0, dt
 
     def psi_update(self, gamma: float, u: float, pr, pi, mu, epsilon, dt,
                    abs_sq=None) -> Tuple[torch.Tensor, torch.Tensor,
@@ -241,27 +334,39 @@ class StepOperands:
         update's ``|psi|^2`` is ``abs_sq`` where given (the screening
         fixed point updates from its iterate with the step's starting
         ``|psi|^2``), else it is recomputed from ``pr``/``pi``. Returns
-        ``(new_r, new_i, new_sq, ok)``, with ``ok`` a 0-d bool tensor on
-        the tensors' device. One kernel launch, no other device work."""
+        ``(new_r, new_i, new_sq, ok)``, with ``ok`` a bool tensor on the
+        tensors' device: 0-d, or ``(B,)`` for a batch. One kernel launch,
+        no other device work."""
         self._need_links()
         if _on_cpu(pr):
             return plain_psi_update(gamma, u, self.sten, self.U, pr, pi, mu,
                                     epsilon, dt, abs_sq)
-        planes = (self._plane("pr", pr), self._plane("pi", pi),
-                  None if abs_sq is None else self._plane("abs_sq", abs_sq),
-                  self._plane("mu", mu), self._plane("epsilon", epsilon))
+        members = self._members(pr)
+        batch = members if pr.dim() == 3 else None
+        (pr_p, s_pr), (pi_p, s_pi) = (self._plane("pr", pr, batch),
+                                      self._plane("pi", pi, batch))
+        if batch is not None and (s_pr == 0 or s_pi == 0):
+            raise ValueError("pr and pi must both carry the member axis")
+        sq_p, s_sq = ((None, 0) if abs_sq is None
+                      else self._plane("abs_sq", abs_sq, batch))
+        (mu_p, s_mu), (eps_p, s_eps) = (self._plane("mu", mu, batch),
+                                        self._plane("epsilon", epsilon,
+                                                    batch))
         # dt_keep holds a dt made here from a float until the launch.
-        dt_ptr, dt_keep = self._dt_ptr(dt)
+        dt_ptr, s_dt, dt_keep = self._dt_ptr(dt, batch)
         out_r = torch.empty_like(pr)
         out_i = torch.empty_like(pr)
         out_sq = torch.empty_like(pr)
-        ok = torch.empty((), dtype=torch.bool, device=pr.device)
+        ok = torch.empty(pr.shape[:-2], dtype=torch.bool, device=pr.device)
+        raw, row, col = self.link_strides
         rc = _kernel("tdgl_psi_update", self.dtype)(
-            *planes, *self.stencil.psi_planes, *self.links, self.factored,
-            dt_ptr, float(gamma), float(u), out_r.data_ptr(),
-            out_i.data_ptr(), out_sq.data_ptr(),
-            _flag_word(pr.device).data_ptr(), ok.data_ptr(), self.shape[0],
-            self.shape[1], torch.cuda.current_stream(pr.device).cuda_stream)
+            pr_p, pi_p, sq_p, mu_p, eps_p, *self.stencil.psi_planes,
+            *self.links, self.factored, dt_ptr, float(gamma), float(u),
+            out_r.data_ptr(), out_i.data_ptr(), out_sq.data_ptr(),
+            _flag_word(pr.device, members).data_ptr(), ok.data_ptr(),
+            self.shape[0], self.shape[1], members,
+            _strides(s_pr, s_pi, s_sq, s_mu, s_eps, raw, row, col, s_dt),
+            torch.cuda.current_stream(pr.device).cuda_stream)
         _raise_on_error("fused_psi_update", rc)
         fused_psi_update.launches += 1
         return out_r, out_i, out_sq, ok
@@ -270,8 +375,8 @@ class StepOperands:
         """Fused ``poisson_rhs(sten, supercurrent_on_edges(sten, U, pr,
         pi), dA_dt, neumann_term)``. By default the edge currents never
         reach memory; ``with_supercurrent`` returns ``(rhs, J_s)``, the
-        kernel writing the (3, rows, cols) supercurrent in the same pass
-        (the screened step needs it)."""
+        kernel writing the (3, rows, cols) supercurrent (per member) in
+        the same pass (the screened step needs it)."""
         self._need_links()
         if self.dA_dt is None or self.neumann_term is None:
             raise ValueError("poisson_rhs needs operands bound with dA_dt"
@@ -279,16 +384,34 @@ class StepOperands:
         if _on_cpu(pr):
             return plain_poisson_rhs(self.sten, self.U, pr, pi, self.dA_dt,
                                      self.neumann_term, with_supercurrent)
-        psi = (self._plane("pr", pr), self._plane("pi", pi))
+        members = self._members(pr)
+        batch = members if pr.dim() == 3 else None
+        if batch is None:
+            if self.dA_members is not None or \
+                    self.neumann_members is not None:
+                raise ValueError("member-batched dA_dt or neumann_term"
+                                 " need (B, rows, cols) psi planes")
+        else:
+            _same_members("dA_dt", self.dA_members, members)
+            _same_members("neumann_term", self.neumann_members, members)
+        (pr_p, s_pr), (pi_p, s_pi) = (self._plane("pr", pr, batch),
+                                      self._plane("pi", pi, batch))
+        if batch is not None and (s_pr == 0 or s_pi == 0):
+            raise ValueError("pr and pi must both carry the member axis")
         st = self.stencil
         rhs = torch.empty_like(pr)
-        J_s = (torch.empty(st.edge_shape, dtype=pr.dtype, device=pr.device)
+        J_s = (torch.empty(pr.shape[:-2] + st.edge_shape, dtype=pr.dtype,
+                           device=pr.device)
                if with_supercurrent else None)
+        raw, row, col = self.link_strides
         rc = _kernel("tdgl_poisson_rhs", self.dtype)(
-            *psi, *self.links, self.factored, *st.rhs_planes, self.dA_ptr,
-            st.inv_area, self.neumann_ptr, rhs.data_ptr(),
+            pr_p, pi_p, *self.links, self.factored, *st.rhs_planes,
+            self.dA_ptr, st.inv_area, self.neumann_ptr, rhs.data_ptr(),
             None if J_s is None else J_s.data_ptr(), self.shape[0],
-            self.shape[1], torch.cuda.current_stream(pr.device).cuda_stream)
+            self.shape[1], members,
+            _strides(s_pr, s_pi, raw, row, col, self.dA_stride,
+                     self.neumann_stride),
+            torch.cuda.current_stream(pr.device).cuda_stream)
         _raise_on_error("fused_poisson_rhs", rc)
         fused_poisson_rhs.launches += 1
         return (rhs, J_s) if with_supercurrent else rhs

@@ -13,6 +13,21 @@ operands that change within a chunk (the links rebuilt from a traced or
 screened vector potential, ``dA_dt``, the Neumann term) are rebound per
 step or per fixed-point iteration, which checks only them.
 
+**Members.** The same chunk runs a batch of B independent runs (the
+members of a parameter sweep, :mod:`tdgl_tpu_torch.parallel`) when the
+state's fields carry a leading member axis: ``psi_r`` is ``(B, Rp, Cp)``
+and the scalars are ``(B,)``; fields that all members share (the applied
+potential of a current sweep, ``epsilon``, ``dA_dt``, the Neumann term of
+a field sweep, ``A_induced``) may keep their single-run shapes. Both
+kernels then launch once per step for the whole batch. The robust
+program's loops gate per member, as the JAX package's vmapped
+``while_loop``s do: the discriminant retries shrink ``dt`` only for the
+members that fail, and the top-up CG keeps a converged member's iterate,
+each loop reading one flag per iteration for the batch. The adaptive
+window, ``done`` and ``failed`` are per member, and a finished member is
+frozen (ghost steps) while the others go on. Outputs are ``(B, T, ...)``.
+Screening and a traced Neumann term are single-run only.
+
 Eager PyTorch cannot drop dead work the way XLA does, so a step forms only
 what it uses: the unscreened step forms neither the supercurrent nor the
 normal current (the chunk recomputes both once, after its last step, as
@@ -30,12 +45,14 @@ import torch
 from ..models import gtdgl_stencil as gs
 from ..ops.cg import solve_mu_poisson_grid
 from ..ops.step_kernels import StencilOperands, StepOperands
-from .step import (StepConfig, StepOutputs, induced_potential_update,
-                   screening_error)
+from .step import (StepConfig, StepOutputs, adaptive_window,
+                   induced_potential_update, member_view, plane_max,
+                   retry_members, screening_error, traced_per_member)
 
 
 class GridState(NamedTuple):
-    """Device-resident solver state on the padded grid."""
+    """Device-resident solver state on the padded grid (shapes of a single
+    run; a batch adds a leading member axis, see the module docstring)."""
 
     psi_r: torch.Tensor            # (Rp, Cp)
     psi_i: torch.Tensor            # (Rp, Cp)
@@ -59,7 +76,8 @@ class GridState(NamedTuple):
 
 
 def export_grid_diagnostics(state: GridState) -> torch.Tensor:
-    """``[time, prev_dt, tentative_dt, step, done, failed]`` as float32."""
+    """``[time, prev_dt, tentative_dt, step, done, failed]`` as float32
+    (``(B, 6)`` for a batch)."""
     f = torch.float32
     return torch.stack([
         state.time.to(f),
@@ -68,7 +86,7 @@ def export_grid_diagnostics(state: GridState) -> torch.Tensor:
         state.step.to(f),
         state.done.to(f),
         state.failed.to(f),
-    ])
+    ], dim=-1)
 
 
 def export_grid_state_arrays(state: GridState):
@@ -105,19 +123,13 @@ def make_grid_step_fn(cfg: StepConfig):
     """
 
     def euler_with_retries(ops, pr, pi, mu, epsilon, dt0, abs_sq=None):
-        new_r, new_i, new_sq, ok = ops.psi_update(
-            cfg.gamma, cfg.u, pr, pi, mu, epsilon, dt0, abs_sq)
-        if not cfg.adaptive or cfg.fast_chunk:
-            return new_r, new_i, new_sq, dt0, torch.logical_not(ok)
-        # Discriminant retries with a shrinking dt: one host read of `ok`
-        # per attempt (the JAX program's lax.while_loop).
-        dt, tries = dt0, 0
-        while tries <= cfg.max_solve_retries and not bool(ok):
-            dt = dt * cfg.adaptive_time_step_multiplier
-            new_r, new_i, new_sq, ok = ops.psi_update(
-                cfg.gamma, cfg.u, pr, pi, mu, epsilon, dt, abs_sq)
-            tries += 1
-        return new_r, new_i, new_sq, dt, torch.logical_not(ok)
+        def update(dt):
+            return ops.psi_update(cfg.gamma, cfg.u, pr, pi, mu, epsilon, dt,
+                                  abs_sq)
+        if cfg.adaptive and not cfg.fast_chunk:
+            return retry_members(update, dt0, cfg)
+        new_r, new_i, new_sq, ok = update(dt0)
+        return new_r, new_i, new_sq, dt0, torch.logical_not(ok)
 
     def solve_mu(sten, amg, rhs, mu_guess, fixed_iters=None):
         # The outer (per-step) solve of the robust program gets a
@@ -166,10 +178,16 @@ def make_grid_step_fn(cfg: StepConfig):
              aux):
         rdtype = state.mu.dtype
         time = state.time
+        if time.dim() and (cfg.include_screening
+                           or cfg.mu_boundary_fn is not None):
+            raise NotImplementedError(
+                "member-batched chunks run unscreened, without a traced"
+                " Neumann term")
         rebound = {}
         if cfg.A_fn is not None:
-            A_applied = cfg.A_fn(time).to(rdtype)
-            dA = (A_applied - state.A_applied) / state.prev_dt
+            A_applied = traced_per_member(cfg.A_fn, time).to(rdtype)
+            dA = ((A_applied - state.A_applied)
+                  / member_view(state.prev_dt, A_applied))
             nd = aux["ndirs"]
             dA_dt = (dA[..., 0] * nd[:, 0, None, None]
                      + dA[..., 1] * nd[:, 1, None, None]) * aux["edge_valid"]
@@ -177,7 +195,7 @@ def make_grid_step_fn(cfg: StepConfig):
         else:
             A_applied = state.A_applied
             dA_dt = state.dA_dt
-        epsilon = (cfg.eps_fn(time).to(rdtype)
+        epsilon = (traced_per_member(cfg.eps_fn, time).to(rdtype)
                    if cfg.eps_fn is not None else state.epsilon)
         if cfg.mu_boundary_fn is not None:
             neumann_term = gs.neumann_boundary_term(
@@ -284,19 +302,9 @@ def make_grid_step_fn(cfg: StepConfig):
             A_induced = state.A_induced
             screening_iters = aux["zero_i32"]
 
-        d_psi_sq = torch.max(torch.abs(sq_n - old_sq))
-        W = cfg.adaptive_window
-        window = torch.where(aux["window_ix"] == state.step % W,
-                             d_psi_sq.to(rdtype), state.dpsi_window)
-        if cfg.adaptive:
-            new_dt_est = cfg.dt_init / torch.clamp(torch.mean(window),
-                                                   min=1e-10)
-            tentative = torch.clamp(0.5 * (new_dt_est + dt_used), 0.0,
-                                    cfg.dt_max)
-            tentative = torch.where(state.step > W, tentative,
-                                    state.tentative_dt)
-        else:
-            tentative = state.tentative_dt
+        d_psi_sq = plane_max(torch.abs(sq_n - old_sq), 2)
+        window, tentative = adaptive_window(cfg, state, d_psi_sq, dt_used,
+                                            aux["window_ix"])
 
         new_state = state._replace(
             psi_r=pr_n,
@@ -320,9 +328,9 @@ def make_grid_step_fn(cfg: StepConfig):
         outputs = StepOutputs(
             dt=dt_used,
             time=time + dt_used,
-            mu_probe=mu_n.reshape(-1)[probe_ix],
-            theta_probe=torch.atan2(pi_n.reshape(-1)[probe_ix],
-                                    pr_n.reshape(-1)[probe_ix]),
+            mu_probe=mu_n.flatten(-2)[..., probe_ix],
+            theta_probe=torch.atan2(pi_n.flatten(-2)[..., probe_ix],
+                                    pr_n.flatten(-2)[..., probe_ix]),
             screening_iterations=screening_iters,
             cg_iterations=cg_iters,
             valid=aux["one_i32"],
@@ -350,7 +358,8 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
       finished or failed runs are frozen with an elementwise select on
       the device flag ``done`` (no host read inside the fast program's
       chunk; the robust program reads ``ok``, the top-up residual and the
-      screening error);
+      screening error); so are finished members of a batch, whose
+      outputs come out ``(B, chunk_size, ...)``;
     * traced ``epsilon`` and Neumann terms are refreshed at the chunk's
       final time, and the last step's supercurrent and normal current are
       recomputed once after the loop.
@@ -383,8 +392,10 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
                                   device=dev),
             window_ix=torch.arange(cfg.adaptive_window, dtype=torch.int32,
                                    device=dev),
-            zero_i32=torch.zeros((), dtype=torch.int32, device=dev),
-            one_i32=torch.ones((), dtype=torch.int32, device=dev),
+            zero_i32=torch.zeros(state.step.shape, dtype=torch.int32,
+                                 device=dev),
+            one_i32=torch.ones(state.step.shape, dtype=torch.int32,
+                               device=dev),
             edge_valid=sten.edge_valid.to(rdtype),
         )
         if cfg.A_fn is not None:
@@ -408,18 +419,22 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
             frozen = st.done
             new_st, out = step_fn(sten, screening, amg, st, ops, aux)
             st = st._replace(**{
-                k: torch.where(frozen, getattr(st, k), getattr(new_st, k))
+                k: torch.where(member_view(frozen, getattr(new_st, k)),
+                               getattr(st, k), getattr(new_st, k))
                 for k in carried
             })
             steps.append(out._replace(
                 valid=torch.where(frozen, aux["zero_i32"], out.valid),
                 dt=torch.where(frozen, zero_dt, out.dt),
             ))
-        outputs = StepOutputs(*(torch.stack(field) for field in zip(*steps)))
+        # Steps stack after the member axis of a batch: (B, T, ...).
+        outputs = StepOutputs(*(torch.stack(field, dim=state.step.dim())
+                                for field in zip(*steps)))
         # Chunk-constant fields dropped from the carry are refreshed at the
         # final time when they are traced functions of t.
         if cfg.eps_fn is not None:
-            st = st._replace(epsilon=cfg.eps_fn(st.time).to(rdtype))
+            st = st._replace(epsilon=traced_per_member(
+                cfg.eps_fn, st.time).to(rdtype))
         if cfg.mu_boundary_fn is not None:
             st = st._replace(neumann_term=gs.neumann_boundary_term(
                 sten, cfg.mu_boundary_fn(st.time).to(rdtype)))
@@ -434,7 +449,7 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
             U = static_link
         J_s = gs.supercurrent_on_edges(sten, U, st.psi_r, st.psi_i)
         J_n = -gs.gradient_on_edges(sten, st.mu) - st.dA_dt
-        advanced = st.step > state.step
+        advanced = member_view(st.step > state.step, J_s)
         final = st._replace(
             supercurrent=torch.where(advanced, J_s, state.supercurrent),
             normal_current=torch.where(advanced, J_n, state.normal_current),

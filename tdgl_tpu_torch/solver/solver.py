@@ -859,7 +859,12 @@ class TDGLSolver:
     def _mu_boundary(self, time: float) -> np.ndarray:
         """Terminal current densities at ``time`` -> Neumann BC values per
         boundary edge."""
-        currents = self.current_func(time)
+        return self._mu_boundary_from_currents(self.current_func(time))
+
+    def _mu_boundary_from_currents(self, currents: Dict[str, float]
+                                   ) -> np.ndarray:
+        """Neumann BC values per boundary edge for an explicit dict of
+        (already nondimensional) terminal currents."""
         mu_boundary = np.zeros(
             len(self.mesh.edge_mesh.boundary_edge_indices), dtype=self.rdtype
         )

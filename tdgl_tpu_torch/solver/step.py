@@ -22,6 +22,17 @@ read their condition from the device: per step, one read of ``done``, one
 of the psi update's ``ok`` (adaptive dt) per attempt, one per CG stopping
 test, and, with screening, one of the fixed-point error per iteration. The
 ELL backend has no fast chunk program (as in the JAX package).
+
+The ELL chunk also runs a batch of B independent runs (the members of a
+parameter sweep) when the state carries a leading member axis (``psi``
+``(B, N, 2)``, the scalars ``(B,)``; shared fields keep their single-run
+shapes), with the loops gated per member as the JAX package's vmapped
+``while_loop``s are: per step one read of ``all(done)``, one of
+``any(!ok)`` per attempt and one per CG iteration for the whole batch. A
+finished member is frozen while the others go on, and its slots emit
+zeros. Screening and a traced Neumann term are single-run only. The
+helpers below (:func:`adaptive_window`, :func:`retry_members`, ...) serve
+both backends.
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..models import gtdgl
-from ..ops.cg import solve_mu_poisson
+from ..ops.cg import member_view, solve_mu_poisson
 from ..ops.screening import induced_vector_potential
 
 
@@ -220,7 +231,8 @@ class StepConfig:
 
 
 def export_diagnostics(state: SolverState) -> torch.Tensor:
-    """``[time, prev_dt, tentative_dt, step, done, failed]`` as float32."""
+    """``[time, prev_dt, tentative_dt, step, done, failed]`` as float32
+    (``(B, 6)`` for a batch)."""
     f = torch.float32
     return torch.stack([
         state.time.to(f),
@@ -229,7 +241,7 @@ def export_diagnostics(state: SolverState) -> torch.Tensor:
         state.step.to(f),
         state.done.to(f),
         state.failed.to(f),
-    ])
+    ], dim=-1)
 
 
 def export_state_arrays(state: SolverState):
@@ -285,6 +297,63 @@ def screening_error(cfg: StepConfig, dA, A_ind, app_scale):
     return torch.max(dA_norm / torch.clamp(A_norm, min=1e-20))
 
 
+def traced_per_member(fn, time: torch.Tensor) -> torch.Tensor:
+    """A traced input ``fn(t)`` at each member's own time (stacked), or
+    at the single run's time."""
+    if time.dim() == 0:
+        return fn(time)
+    return torch.stack([fn(t) for t in time])
+
+
+def plane_max(x: torch.Tensor, nd: int) -> torch.Tensor:
+    """``max(x)`` over the last ``nd`` dims: the whole tensor for a
+    single run, per member for a batch."""
+    if x.dim() == nd:
+        return torch.max(x)
+    return torch.amax(x, dim=tuple(range(-nd, 0)))
+
+
+def adaptive_window(cfg, state, d_psi_sq, dt_used, window_ix):
+    """The adaptive-dt ring buffer and the next tentative dt (both
+    backends; per member for a batch): ``(window, tentative)``."""
+    rdtype = state.dpsi_window.dtype
+    W = cfg.adaptive_window
+    slot = state.step % W
+    if slot.dim():
+        slot = slot[:, None]
+        d_psi_sq = d_psi_sq[:, None]
+    window = torch.where(window_ix == slot, d_psi_sq.to(rdtype),
+                         state.dpsi_window)
+    if not cfg.adaptive:
+        return window, state.tentative_dt
+    mean = (torch.mean(window) if window.dim() == 1
+            else torch.mean(window, dim=-1))
+    new_dt_est = cfg.dt_init / torch.clamp(mean, min=1e-10)
+    tentative = torch.clamp(0.5 * (new_dt_est + dt_used), 0.0, cfg.dt_max)
+    tentative = torch.where(state.step > W, tentative, state.tentative_dt)
+    return window, tentative
+
+
+def retry_members(psi_update, dt0, cfg):
+    """The discriminant retries (both backends, a single run or a batch):
+    ``psi_update(dt) -> (*fields, ok)`` is re-run with ``dt`` shrunk only
+    for the members whose ``ok`` is False, and their fields replace the
+    earlier ones (the JAX program's ``while_loop``, vmapped for a batch);
+    one host read of ``ok`` per attempt. Returns ``(*fields, dt, fail)``."""
+    out = psi_update(dt0)
+    ok, dt, tries = out[-1], dt0, 0
+    while tries <= cfg.max_solve_retries and not bool(
+            ok if ok.dim() == 0 else torch.all(ok)):
+        retry = ~ok
+        dt = torch.where(retry, dt * cfg.adaptive_time_step_multiplier, dt)
+        new = psi_update(dt)
+        out = tuple(torch.where(member_view(retry, n), n, o)
+                    for o, n in zip(out[:-1], new[:-1])) + (ok | new[-1],)
+        ok = out[-1]
+        tries += 1
+    return out[:-1] + (dt, ~ok)
+
+
 def make_step_fn(cfg: StepConfig):
     """Build the ELL step ``(op, screening_weights, amg, state, aux) ->
     (state, outputs)``.
@@ -297,20 +366,14 @@ def make_step_fn(cfg: StepConfig):
     """
 
     def euler_with_retries(op, U, psi, old_sq, mu, epsilon, dt0):
-        """Euler update with dt-shrinking retries: one host read of ``ok``
-        per attempt (the JAX program's ``lax.while_loop``)."""
-        res = gtdgl.implicit_euler_psi(op, U, psi, old_sq, mu, epsilon,
-                                       cfg.gamma, cfg.u, dt0)
-        if not cfg.adaptive:
-            return res.psi, res.abs_sq_psi, dt0, torch.logical_not(res.ok)
-        dt, tries, ok = dt0, 0, res.ok
-        while tries <= cfg.max_solve_retries and not bool(ok):
-            dt = dt * cfg.adaptive_time_step_multiplier
-            res = gtdgl.implicit_euler_psi(op, U, psi, old_sq, mu, epsilon,
-                                           cfg.gamma, cfg.u, dt)
-            ok = res.ok
-            tries += 1
-        return res.psi, res.abs_sq_psi, dt, torch.logical_not(ok)
+        """Euler update with dt-shrinking retries (:func:`retry_members`)."""
+        def update(dt):
+            return gtdgl.implicit_euler_psi(op, U, psi, old_sq, mu, epsilon,
+                                            cfg.gamma, cfg.u, dt)
+        if cfg.adaptive:
+            return retry_members(update, dt0, cfg)
+        res = update(dt0)
+        return res.psi, res.abs_sq_psi, dt0, torch.logical_not(res.ok)
 
     def observables(op, amg, U, psi, dA_dt, mu_boundary, mu_guess,
                     fixed_iters=None):
@@ -340,16 +403,22 @@ def make_step_fn(cfg: StepConfig):
         n_sites = op.areas.shape[0]
         rdtype = state.mu.dtype
         time = state.time
+        if time.dim() and (cfg.include_screening
+                           or cfg.mu_boundary_fn is not None):
+            raise NotImplementedError(
+                "member-batched chunks run unscreened, without a traced"
+                " Neumann term")
         # --- time-dependent inputs (traced path) ---
         if cfg.A_fn is not None:
-            A_applied = cfg.A_fn(time).to(rdtype)
+            A_applied = traced_per_member(cfg.A_fn, time).to(rdtype)
             dA_dt = torch.sum(
-                (A_applied - state.A_applied) / state.prev_dt
-                * aux["unit_dirs"], dim=1)
+                (A_applied - state.A_applied)
+                / member_view(state.prev_dt, A_applied)
+                * aux["unit_dirs"], dim=-1)
         else:
             A_applied = state.A_applied
             dA_dt = state.dA_dt
-        epsilon = (cfg.eps_fn(time).to(rdtype)
+        epsilon = (traced_per_member(cfg.eps_fn, time).to(rdtype)
                    if cfg.eps_fn is not None else state.epsilon)
         mu_boundary = (cfg.mu_boundary_fn(time).to(rdtype)
                        if cfg.mu_boundary_fn is not None
@@ -427,19 +496,9 @@ def make_step_fn(cfg: StepConfig):
             screening_iters = aux["zero_i32"]
 
         # --- adaptive time-step selection ---
-        d_psi_sq = torch.max(torch.abs(sq_n - old_sq))
-        W = cfg.adaptive_window
-        window = torch.where(aux["window_ix"] == state.step % W,
-                             d_psi_sq.to(rdtype), state.dpsi_window)
-        if cfg.adaptive:
-            new_dt_est = cfg.dt_init / torch.clamp(torch.mean(window),
-                                                   min=1e-10)
-            tentative = torch.clamp(0.5 * (new_dt_est + dt_used), 0.0,
-                                    cfg.dt_max)
-            tentative = torch.where(state.step > W, tentative,
-                                    state.tentative_dt)
-        else:
-            tentative = state.tentative_dt
+        d_psi_sq = plane_max(torch.abs(sq_n - old_sq), 1)
+        window, tentative = adaptive_window(cfg, state, d_psi_sq, dt_used,
+                                            aux["window_ix"])
 
         new_state = SolverState(
             psi=psi_n,
@@ -465,8 +524,9 @@ def make_step_fn(cfg: StepConfig):
         outputs = StepOutputs(
             dt=dt_used,
             time=time + dt_used,
-            mu_probe=mu_n[probe_ix],
-            theta_probe=torch.atan2(psi_n[probe_ix, 1], psi_n[probe_ix, 0]),
+            mu_probe=mu_n[..., probe_ix],
+            theta_probe=torch.atan2(psi_n[..., probe_ix, 1],
+                                    psi_n[..., probe_ix, 0]),
             screening_iterations=screening_iters,
             cg_iterations=cg_iters,
             valid=aux["one_i32"],
@@ -494,13 +554,14 @@ def make_chunk_fn(cfg: StepConfig, chunk_size: int):
     def chunk_fn(op, screening_weights, amg, state: SolverState):
         dev = state.mu.device
         rdtype = state.mu.dtype
+        lead = state.step.shape  # () or (B,)
         aux = dict(
             probe_ix=torch.tensor(list(cfg.probe_ix or ()), dtype=torch.long,
                                   device=dev),
             window_ix=torch.arange(cfg.adaptive_window, dtype=torch.int32,
                                    device=dev),
-            zero_i32=torch.zeros((), dtype=torch.int32, device=dev),
-            one_i32=torch.ones((), dtype=torch.int32, device=dev),
+            zero_i32=torch.zeros(lead, dtype=torch.int32, device=dev),
+            one_i32=torch.ones(lead, dtype=torch.int32, device=dev),
             unit_dirs=gtdgl.unit_edge_directions(op, rdtype),
         )
         if cfg.A_fn is None and not cfg.include_screening:
@@ -510,23 +571,40 @@ def make_chunk_fn(cfg: StepConfig, chunk_size: int):
             aux["screen_w"] = screening_weights.to(rdtype)[:, None]
             aux["sites"] = op.sites.to(rdtype)
             aux["edge_centers"] = op.edge_centers.to(rdtype)
-        z = torch.zeros((), dtype=rdtype, device=dev)
+        z = torch.zeros(lead, dtype=rdtype, device=dev)
         frozen = StepOutputs(
             dt=z, time=z,
-            mu_probe=torch.zeros(n_probe, dtype=rdtype, device=dev),
-            theta_probe=torch.zeros(n_probe, dtype=rdtype, device=dev),
+            mu_probe=torch.zeros(lead + (n_probe,), dtype=rdtype, device=dev),
+            theta_probe=torch.zeros(lead + (n_probe,), dtype=rdtype,
+                                    device=dev),
             screening_iterations=aux["zero_i32"],
             cg_iterations=aux["zero_i32"],
             valid=aux["zero_i32"],
         )
         steps = []
         for _ in range(chunk_size):
-            if bool(state.done):
+            if bool(torch.all(state.done) if lead else state.done):
                 steps.append(frozen)
                 continue
-            state, out = step_fn(op, screening_weights, amg, state, aux)
-            steps.append(out)
-        outputs = StepOutputs(*(torch.stack(field) for field in zip(*steps)))
+            if not lead:
+                state, out = step_fn(op, screening_weights, amg, state, aux)
+                steps.append(out)
+                continue
+            # A batch: step every member, then keep a finished member's
+            # state and emit its frozen slot (the JAX package's vmapped
+            # lax.cond selects the same way).
+            done = state.done
+            new, out = step_fn(op, screening_weights, amg, state, aux)
+            state = state._replace(**{
+                k: (n if n is o else
+                    torch.where(member_view(done, n), o, n))
+                for k, o, n in zip(SolverState._fields, state, new)})
+            steps.append(StepOutputs(*(
+                torch.where(member_view(done, n), f, n)
+                for f, n in zip(frozen, out))))
+        # Steps stack after the member axis of a batch: (B, T, ...).
+        outputs = StepOutputs(*(torch.stack(field, dim=len(lead))
+                                for field in zip(*steps)))
         return state, outputs, export_state_arrays(state)
 
     return chunk_fn

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import tdgl_tpu as jtdgl
 from tdgl_tpu.fv.stencil_operators import build_stencil_operators
@@ -32,6 +33,15 @@ torch.set_num_threads(1)
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_blas_thread():
+    """One BLAS thread for this module's set-up: the multigrid's dense
+    pseudo-inverse otherwise spins eight OpenBLAS threads on a CPU that
+    the other test workers keep busy (see ``tests/test_torch_solve.py``)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -581,3 +581,134 @@ def test_cpu_checkpoint_resumes_on_card(mesh_device, cuda_device, tmp_path):
     for name in ("psi", "mu", "supercurrent", "normal_current"):
         a, b = getattr(card.tdgl_data, name), getattr(host.tdgl_data, name)
         assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max(), name
+
+
+def _member_inputs(solver, B, seed=11):
+    """B members' psi, mu and Neumann planes (``(B, rows, cols)``), each
+    member seeded on its own."""
+    xs = [_inputs(solver, seed + b) for b in range(B)]
+    rng = np.random.default_rng(seed)
+    neumann = torch.tensor(rng.normal(size=(B,) + solver.maps.shape) * 0.1,
+                           dtype=solver.torch_dtype,
+                           device=solver.torch_device)
+    return {k: torch.stack([x[k] for x in xs]) for k in xs[0]} | {
+        "neumann": neumann}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("form", ["raw", "factored"])
+@pytest.mark.parametrize("links", ["per member", "shared"])
+def test_batched_kernels_match_plain_per_member(cuda_device, mesh_device,
+                                                dtype, form, links):
+    """A batch of 3 members in one launch of each kernel: every member
+    equals the plain version on its own inputs, with the links per member
+    (a field sweep: scaled A) or shared (a current sweep), dt per member,
+    epsilon and dA/dt shared, the Neumann plane per member."""
+    B = 3
+    solver = _solver(mesh_device, cuda_device, dtype)
+    state = solver._initial_state()
+    scales = torch.tensor([0.5, 1.0, 2.0], dtype=solver.torch_dtype,
+                          device=cuda_device)
+    if links == "per member":
+        A = state.A_applied[None] * scales[:, None, None, None, None]
+    else:
+        A = state.A_applied
+    U = _links(solver, state._replace(A_applied=A))[form]
+    x = _member_inputs(solver, B)
+    eps, dA = _inputs(solver)["eps"], _inputs(solver)["dA"]
+    dt = torch.tensor([1e-2, 3e-3, 2e-2], dtype=solver.torch_dtype,
+                      device=cuda_device)
+    g, u = solver.cfg.gamma, solver.cfg.u
+    ops = step_kernels.StepOperands(solver.sten, U, dA, x["neumann"])
+    before = [fn.launches for fn in step_kernels.KERNELS]
+    got = ops.psi_update(g, u, x["pr"], x["pi"], x["mu"], eps, dt)
+    rhs = ops.poisson_rhs(x["pr"], x["pi"])
+    assert [fn.launches - b for fn, b in
+            zip(step_kernels.KERNELS, before)] == [1, 1]
+    assert got[3].shape == (B,)
+    tol = 3e-5 if dtype == "float32" else 1e-12
+    for b in range(B):
+        U_b = type(U)(*(f[b] for f in U)) if links == "per member" else U
+        ref = step_kernels.plain_psi_update(g, u, solver.sten, U_b,
+                                            x["pr"][b], x["pi"][b],
+                                            x["mu"][b], eps, dt[b])
+        for a, r in zip(got[:3], ref[:3]):
+            scale = 1.0 if dtype == "float32" else max(
+                r.abs().max().item(), 1.0)
+            assert (a[b] - r).abs().max().item() < tol * scale
+        assert bool(got[3][b]) == bool(ref[3])
+        rhs_ref = step_kernels.plain_poisson_rhs(
+            solver.sten, U_b, x["pr"][b], x["pi"][b], dA, x["neumann"][b])
+        scale = max(rhs_ref.abs().max().item(), 1.0)
+        assert (rhs[b] - rhs_ref).abs().max().item() < tol * scale
+
+
+def test_single_member_batch_equals_single_call(cuda_device, mesh_device):
+    """B = 1 through the batched entry launches the same kernels as a
+    single run: bitwise equal outputs."""
+    solver = _solver(mesh_device, cuda_device, "float32")
+    state = solver._initial_state()
+    U = _links(solver, state)["factored"]
+    x = _inputs(solver)
+    g, u = solver.cfg.gamma, solver.cfg.u
+    dt = torch.tensor(1e-2, dtype=torch.float32, device=cuda_device)
+    ops = step_kernels.StepOperands(solver.sten, U, x["dA"],
+                                    state.neumann_term)
+    single = ops.psi_update(g, u, x["pr"], x["pi"], x["mu"], x["eps"], dt)
+    batch = ops.psi_update(g, u, x["pr"][None], x["pi"][None],
+                           x["mu"][None], x["eps"], dt.reshape(1))
+    for a, b in zip(single, batch):
+        assert torch.equal(a, b[0])
+    assert torch.equal(ops.poisson_rhs(x["pr"], x["pi"]),
+                       ops.poisson_rhs(x["pr"][None], x["pi"][None])[0])
+
+
+def test_ok_is_per_member(cuda_device, mesh_device):
+    """Members 1 and 5 of 8 get a dt far too large: only their ``ok`` is
+    False; the next launch, all passing, reads all True (each member's
+    flag word reset itself)."""
+    B = 8
+    solver = _solver(mesh_device, cuda_device, "float32")
+    state = solver._initial_state()
+    ops = step_kernels.StepOperands(solver.sten,
+                                    _links(solver, state)["factored"])
+    x = _member_inputs(solver, B, seed=4)
+    g, u = solver.cfg.gamma, solver.cfg.u
+    bad = torch.zeros(B, dtype=torch.bool, device=cuda_device)
+    bad[[1, 5]] = True
+    dt = torch.where(bad, 50.0, 1e-5).to(torch.float32)
+    mu = x["mu"] * torch.where(bad, 40.0, 1.0)[:, None, None]
+    ok = ops.psi_update(g, u, x["pr"], x["pi"], mu, x["eps"][0], dt)[3]
+    ref = step_kernels.plain_psi_update(g, u, solver.sten, ops.U, x["pr"],
+                                        x["pi"], mu, x["eps"][0], dt)[3]
+    assert ok.tolist() == ref.tolist() == [True, False, True, True, True,
+                                           False, True, True]
+    ok = ops.psi_update(g, u, x["pr"], x["pi"], x["mu"], x["eps"][0],
+                        torch.full((B,), 1e-5, device=cuda_device))[3]
+    assert ok.tolist() == [True] * B
+
+
+def test_sweep_on_card_matches_cpu(cuda_device, mesh_device):
+    """A float64 3-member current sweep through ``solve_sweep`` on the card
+    (one launch of each kernel per step for the batch) tracks the same
+    sweep on the CPU over 20 steps to 1e-10, the bound of the single-run
+    chunk test above (fused multiply-adds round differently on the card;
+    after 50 steps the difference had grown to 1.1e-10)."""
+    from tdgl_tpu_torch.parallel import solve_sweep
+
+    options = ttdgl.SolverOptions(solve_time=0.02, dt_init=1e-3,
+                                  save_every=20, field_units="mT",
+                                  current_units="uA", dtype="float64")
+    kwargs = dict(applied_vector_potential=0.5,
+                  terminal_currents=dict(source=3.0, drain=-3.0),
+                  current_scales=[0.5, 1.0, 2.0])
+    step_kernels.reset_launch_counts()
+    gpu = solve_sweep(mesh_device, options, **kwargs)
+    launches = [fn.launches for fn in step_kernels.KERNELS]
+    cpu = solve_sweep(mesh_device, options, torch_device="cpu", **kwargs)
+    assert np.array_equal(gpu.steps, cpu.steps)
+    assert launches[1] >= int(gpu.steps.max()) and launches[0] >= launches[1]
+    for name in ("psi", "mu", "supercurrent", "normal_current"):
+        a, b = getattr(gpu, name), getattr(cpu, name)
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max(), name
+    assert np.abs(gpu.dynamics_dt - cpu.dynamics_dt).max() <= 1e-12

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import tdgl_tpu as jtdgl
 from tdgl_tpu.models import gtdgl_stencil as jgs
@@ -31,6 +32,15 @@ torch.set_num_threads(1)
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_blas_thread():
+    """One BLAS thread for this module's set-up: the multigrid's dense
+    pseudo-inverse otherwise spins eight OpenBLAS threads on a CPU that
+    the other test workers keep busy (see ``tests/test_torch_solve.py``)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -50,11 +60,14 @@ def device():
 @pytest.fixture(scope="module", params=sorted(DTYPES))
 def case(request, device):
     """Both packages' stencils, raw and factored link phases, and a seeded
-    random state, in one dtype."""
+    random state, in one dtype. The JAX solver gives the stencil, the
+    state and the step constants; it is built with the Jacobi
+    preconditioner, so it skips the multigrid set-up no test here reads."""
     npd, _ = DTYPES[request.param]
     options = jtdgl.SolverOptions(solve_time=1.0, dtype=request.param,
                                   field_units="mT", current_units="uA",
-                                  factor_link_phases=True)
+                                  factor_link_phases=True,
+                                  poisson_preconditioner="jacobi")
     solver = JaxSolver(device, options, applied_vector_potential=0.5,
                        terminal_currents=dict(source=3.0, drain=-3.0))
     state = solver._initial_state()
