@@ -41,7 +41,7 @@ the robust program. Phases (each prints its seconds):
    wrapper call (one kernel, no fill or compare);
 9. a traced ramp through ``solve()``: the applied field ramps as
    ``ConstantField(0.5) * LinearRamp`` and a ``jittable`` source current
-   from 0 to 20 uA over the first half of ``--ramp-time`` (about 1,000
+   from 0 to 20 uA over the first half of ``--ramp-time`` (about 600
    steps in chunks of 500, inputs evaluated on the card inside the
    chunk), its steps/s beside phase 7's, the fast step's ops and device
    time, and the mean probe voltage over the first and the last chunk;
@@ -49,7 +49,7 @@ the robust program. Phases (each prints its seconds):
    before every step (chunk size 1, about 50 steps);
 10. screening through ``solve()`` at ``bench.py``'s screened operating
     point (0.5 mT, tolerance 1e-3, the fft kernel, Anderson, the fast
-    program with site evaluation and failover; about 500 steps in chunks
+    program with site evaluation and failover; about 250 steps in chunks
     of 200): steps/s, failovers, screening iterations, launches per step
     slot (exactly one of each kernel in every committed fast chunk), the
     fast and robust screened step's ops and device time, and the device ms
@@ -116,17 +116,42 @@ against the CPU (static, traced ramp, screened ``xla``; 1e-10, equal step,
 retry, CG and screening iteration counts) and runs a float32 ELL chunk
 twice (bitwise equal).
 
-Phases 6, 7, 9, 10, 12 and 13 each reset the kernels' launch counters just before
-each of their runs and read them just after; each count must match the
-step slots that run executed (chunks times chunk size, robust re-runs
-included). The last two stdout lines are the kernels' JSON record and
+14. screened sweeps (``solve_sweep`` with ``include_screening``): the two
+    kernel forms a screened batch launches (the RHS kernel writing J_s,
+    ``(B, 3, rows, cols)``, and the psi kernel with a ``|psi|^2`` plane,
+    ``(B, rows, cols)``) at 8 members with per-member links, raw and
+    factored, float32 and float64, each member against the plain version,
+    B = 1 bit for bit equal to a single call, and their device ms against
+    their bytes bound; an 8-member screened field sweep on the structured
+    film at phase 10's operating point (the robust program, the exact FFT
+    convolution, ``--screen-sweep-steps`` steps in chunks of
+    ``--screen-sweep-chunk``) and a 1-member one at scale 1.0 over the
+    same steps: members x steps/s, fixed-point iterations per step and
+    member, both kernels launched exactly once per fixed-point iteration
+    of the batch (psi more only on retries), no member failed (a failed
+    member must fail alone at the same step), members 1 and 7 each run
+    alone as witnesses (probe phase traces within ``WITNESS_RTOL`` over
+    the ``SCREEN_WITNESS_STEPS`` steps before the dt jump); a float64
+    3-member screened sweep on the small film against single robust runs
+    (1e-10, equal steps and screening iterations); an 8-member and a
+    1-member screened field sweep on the Delaunay film (the pairwise
+    ``xla`` kernel, ``--screen-sweep-ell-steps`` steps, host reads per
+    slot, no kernel launch) and one pairwise evaluation's device ms at 8
+    members and at 1.
+
+Phases 6, 7, 9, 10, 12, 13 and 14 each reset the kernels' launch
+counters just before each of their runs and read them just after; each
+count must match the step slots that run executed (chunks times chunk
+size, robust re-runs included), or in phase 14 the fixed-point iterations
+of the batch. The last two stdout lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py`` (one
 GPU); ``--chunk`` and ``--solve-time`` resize phases 6 and 7,
 ``--ramp-time``/``--ramp-chunk`` phase 9, ``--screen-time``/
 ``--screen-chunk`` phase 10, ``--ell-time``/``--ell-chunk``/
 ``--ell-screen-steps`` phase 11, ``--resume-time``/``--resume-chunk``
 phase 12, ``--sweep-steps``/``--sweep-chunk``/``--sweep-ell-steps`` phase
-13.
+13, ``--screen-sweep-steps``/``--screen-sweep-chunk``/
+``--screen-sweep-ell-steps`` phase 14.
 """
 
 import argparse
@@ -150,6 +175,13 @@ F64_TOL = 1e-12
 # 1 and 2 differ in bias by half, and their traces by far more than this.
 WITNESS_STEPS = 20
 WITNESS_RTOL = 1e-2
+# Phase 14's screened witnesses compare the probe phases over the steps
+# before the adaptive dt first leaves dt_init (it jumps 100-fold at step
+# 12): at the jump the screening fixed point exits at its tolerance on a
+# path that float32 rounding differences (the multigrid's coarse solve is
+# one matmul for a batch, a matvec alone) already choose, and the probe
+# phases of batched and single runs part.
+SCREEN_WITNESS_STEPS = 12
 
 # The bound from shapes: an NVIDIA H100 SXM's published HBM rate and
 # float32 peak outside the tensor cores (the operations of both kernels
@@ -1247,7 +1279,7 @@ def run_ell_main_path(pkg, args, inputs):
         f" bound {eval_bound:.3f} ms (operations, float32)")
     assert not bool(scr_state.failed) and a_ind > 0
     assert bool(torch.isfinite(scr_state.psi).all())
-    return rec, device
+    return rec, device, scr.op
 
 
 def run_resume_path(pkg, args, device, options, inputs, tmp):
@@ -1526,22 +1558,43 @@ def check_batched_kernels(solver, B: int, cycles_per_ms: float):
 
 def run_sweep(pkg, device, options, label, **kwargs):
     """One ``solve_sweep`` on the card: its result, wall seconds, kernel
-    launches and host reads (counted from 0 just before it), step slots
-    and members x steps/s."""
+    launches and host reads (counted from 0 just before it), step slots,
+    members x steps/s and the fixed-point iterations (per member and
+    step, and the batch's: per slot the most of any live member); also
+    the per-step outputs' screening iterations and valid flags,
+    ``(B, slots)`` host arrays."""
+    import numpy as np
     import torch
 
     from tdgl_tpu_torch.ops import step_kernels as sk
     from tdgl_tpu_torch.parallel import solve_sweep
+    from tdgl_tpu_torch.parallel import sweep as sweep_module
 
     opts = pkg.SolverOptions(**options)
-    torch.cuda.synchronize()
-    sk.reset_launch_counts()
-    with HostReads() as reads:
-        t0 = time.perf_counter()
-        result = solve_sweep(device, opts, torch_device="cuda", **kwargs)
+    outputs = []
+    host_outputs = sweep_module._host_outputs
+
+    def record(tree):
+        outputs.append(host_outputs(tree))
+        return outputs[-1]
+
+    sweep_module._host_outputs = record
+    try:
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        sk.reset_launch_counts()
+        with HostReads() as reads:
+            t0 = time.perf_counter()
+            result = solve_sweep(device, opts, torch_device="cuda", **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        sweep_module._host_outputs = host_outputs
     launches = {fn.__name__: fn.launches for fn in sk.KERNELS}
+    steps_out = {name: np.concatenate([getattr(o, name) for o in outputs],
+                                      axis=1)
+                 for name in ("screening_iterations", "valid")}
+    its = np.where(steps_out["valid"] > 0,
+                   steps_out["screening_iterations"], 0)
     B = len(result.values)
     steps = int(result.steps.sum())
     chunk = options["save_every"]
@@ -1550,14 +1603,22 @@ def run_sweep(pkg, device, options, label, **kwargs):
                member_steps_per_s=steps / wall, launches=launches,
                slots=slots, host_reads=reads.n,
                host_reads_per_slot=reads.n / slots,
-               failed=result.failed.tolist())
+               failed=result.failed.tolist(),
+               screening_its_per_step=(its.sum(axis=1)
+                                       / np.maximum(result.steps, 1)
+                                       ).tolist(),
+               batch_iterations=int(its.max(axis=0).sum()))
     log(f"  {label}: B={B}, steps {sorted(set(rec['steps']))}, {wall:.2f} s"
         f" = {rec['member_steps_per_s']:.2f} members x steps/s; launches"
         f" {launches} in {slots} step slots ="
         f" {launches['fused_psi_update'] / slots:.3f} psi and"
         f" {launches['fused_poisson_rhs'] / slots:.3f} RHS per slot; host"
-        f" reads {reads.n} = {rec['host_reads_per_slot']:.2f} per slot")
-    return result, rec
+        f" reads {reads.n} = {rec['host_reads_per_slot']:.2f} per slot"
+        + (f"; fixed-point iterations per step by member"
+           f" {[round(x, 3) for x in rec['screening_its_per_step']]}, batch"
+           f" iterations {rec['batch_iterations']}"
+           if options.get("include_screening") else ""))
+    return result, rec, steps_out
 
 
 def sweep_voltage_trace(result, b: int):
@@ -1596,7 +1657,7 @@ def run_sweep_path(pkg, args, solver, device, ell_device, options, inputs):
         for members in (B, 1):
             one = {k: (v[-1:] if k.endswith("_scales") else v)
                    for k, v in kw.items()}
-            result, rec = run_sweep(pkg, device, sw_opts,
+            result, rec, _ = run_sweep(pkg, device, sw_opts,
                                     f"{kind} (structured, float32)",
                                     max_steps=args.sweep_steps,
                                     **(kw if members == B else one))
@@ -1641,7 +1702,7 @@ def run_sweep_path(pkg, args, solver, device, ell_device, options, inputs):
     # step at which a member and its witness part by 1% is printed.
     witnesses = {B - 1: results[("current sweep", 1)]}
     for b in (1, 2):
-        witnesses[b], _ = run_sweep(
+        witnesses[b], _, _ = run_sweep(
             pkg, device, sw_opts, f"current sweep alone at scale {scales[b]}",
             max_steps=args.sweep_steps, applied_vector_potential=0.5,
             terminal_currents=SweepBias(20.0, 1.0),
@@ -1712,7 +1773,7 @@ def run_sweep_path(pkg, args, solver, device, ell_device, options, inputs):
     for members in (B, 1):
         kw = dict(ell_kw, field_scales=scales if members == B
                   else scales[-1:])
-        result, rec = run_sweep(pkg, ell_device, ell_opts,
+        result, rec, _ = run_sweep(pkg, ell_device, ell_opts,
                                 "field sweep (ELL, float32)", **kw)
         runs[f"ELL field sweep (B={members})"] = rec
         assert not any(rec["failed"]) and np.isfinite(result.psi).all()
@@ -1723,6 +1784,313 @@ def run_sweep_path(pkg, args, solver, device, ell_device, options, inputs):
                 current_witness_rel_err=witness_err)
 
 
+def link_tensors(U):
+    """The link planes or vectors a kernel reads (raw: ``ur``, ``ui``;
+    factored: the four row and column vectors)."""
+    from tdgl_tpu_torch.models import gtdgl_stencil as gs
+
+    return [U.ur, U.ui] if isinstance(U, gs.LinkPhases) else list(U)
+
+
+def check_screened_batch_kernels(solver, B: int, cycles_per_ms: float):
+    """Phase 14's kernel checks and timings: the two kernel forms a
+    screened batch launches, the RHS kernel's J_s-writing form and the psi
+    kernel with a ``|psi|^2`` plane, at B members with per-member links
+    (raw and factored), float32 and float64, each member against the plain
+    version on its own inputs; B = 1 bit for bit equal to a single call;
+    then each form's device ms (float32) against its bound. Returns
+    ``{kernel: {form: record}}``."""
+    import torch
+
+    from tdgl_tpu_torch.ops import step_kernels as sk
+
+    g, u = solver.cfg.gamma, solver.cfg.u
+    out = {"fused_psi_update": {}, "fused_poisson_rhs": {}}
+    cases = {}
+    for dtype in (torch.float32, torch.float64):
+        sten = solver.sten._replace(**{
+            f: t.to(dtype) for f, t in solver.sten._asdict().items()
+            if t.is_floating_point()})
+        x, links = member_inputs(solver, B, dtype, sten)
+        # The fixed point's |psi|^2 plane: not pr^2 + pi^2 of the iterate.
+        x["sq"] = (x["pr"] ** 2 + x["pi"] ** 2) * torch.linspace(
+            0.9, 1.1, B, dtype=dtype, device="cuda")[:, None, None]
+        f64 = dtype == torch.float64
+        for form, U in links.items():
+            ops = sk.StepOperands(sten, U, x["dA"], x["neumann"])
+            psi_in = (x["pr"], x["pi"], x["mu"], x["eps"], x["dt"], x["sq"])
+            before = [fn.launches for fn in sk.KERNELS]
+            got = ops.psi_update(g, u, *psi_in)
+            rhs, J_s = ops.poisson_rhs(x["pr"], x["pi"],
+                                       with_supercurrent=True)
+            assert [fn.launches - b for fn, b in
+                    zip(sk.KERNELS, before)] == [1, 1]
+            assert tuple(J_s.shape) == (B, 3) + tuple(x["pr"].shape[1:])
+            psi_err = rhs_err = 0.0
+            for b in range(B):
+                U_b = type(U)(*(None if f is None else f[b] for f in U))
+                ref = sk.plain_psi_update(g, u, sten, U_b, x["pr"][b],
+                                          x["pi"][b], x["mu"][b], x["eps"],
+                                          x["dt"][b], x["sq"][b])
+                rhs_ref, J_ref = sk.plain_poisson_rhs(
+                    sten, U_b, x["pr"][b], x["pi"][b], x["dA"],
+                    x["neumann"][b], with_supercurrent=True)
+                assert bool(got[3][b]) == bool(ref[3]), (form, b)
+                scale = max(max(r.abs().max().item() for r in ref[:3]), 1.0)
+                e = max((a[b] - r).abs().max().item()
+                        for a, r in zip(got[:3], ref[:3]))
+                psi_err = max(psi_err, e / scale if f64 else e)
+                for a, r in ((rhs[b], rhs_ref), (J_s[b], J_ref)):
+                    rhs_err = max(rhs_err, (a - r).abs().max().item()
+                                  / max(r.abs().max().item(), 1.0))
+            label = f"{'float64' if f64 else 'float32'} {form}"
+            log(f"  B={B} {label:16s} per member vs plain: psi (abs_sq"
+                f" form) max|err| {psi_err:.3e}{' (rel)' if f64 else ''},"
+                f" rhs and J_s max|err|/scale {rhs_err:.3e}")
+            assert psi_err < (F64_TOL if f64 else F32_TOL), label
+            assert rhs_err < (F64_TOL if f64 else F32_TOL), label
+            if f64:
+                continue
+            cases[form] = dict(ops=ops, U=U, psi_in=psi_in, sten=sten, x=x,
+                               err={"fused_psi_update": psi_err,
+                                    "fused_poisson_rhs": rhs_err})
+            # One member through the batched entry == a single call.
+            U0 = type(U)(*(None if f is None else f[0] for f in U))
+            one = sk.StepOperands(sten, U0, x["dA"], x["neumann"][0])
+            single = one.psi_update(g, u, x["pr"][0], x["pi"][0],
+                                    x["mu"][0], x["eps"], x["dt"][0],
+                                    x["sq"][0])
+            batch1 = one.psi_update(g, u, x["pr"][:1], x["pi"][:1],
+                                    x["mu"][:1], x["eps"], x["dt"][:1],
+                                    x["sq"][:1])
+            same = all(torch.equal(a, b[0]) for a, b in zip(single, batch1))
+            rhs1 = one.poisson_rhs(x["pr"][0], x["pi"][0], True)
+            rhs_b = one.poisson_rhs(x["pr"][:1], x["pi"][:1], True)
+            same &= all(torch.equal(a, b[0]) for a, b in zip(rhs1, rhs_b))
+            log(f"  B=1 batch == single call, bit for bit ({form}, abs_sq"
+                f" and J_s forms): {same}")
+            assert same, form
+    for form, c in cases.items():
+        ops, U, psi_in, sten, x = (c[k] for k in ("ops", "U", "psi_in",
+                                                  "sten", "x"))
+        calls = {
+            "fused_psi_update": (
+                lambda: ops.psi_update(g, u, *psi_in),
+                lambda: sk.plain_psi_update(g, u, sten, U, *psi_in),
+                list(psi_in) + [sten.w, sten.sym_diag, sten.inv_area,
+                                sten.fixed_mask, sten.valid]
+                + link_tensors(U),
+                list(ops.psi_update(g, u, *psi_in))),
+            "fused_poisson_rhs": (
+                lambda: ops.poisson_rhs(x["pr"], x["pi"], True),
+                lambda: sk.plain_poisson_rhs(sten, U, x["pr"], x["pi"],
+                                             x["dA"], x["neumann"], True),
+                [x["pr"], x["pi"], sten.inv_len, sten.dual, x["dA"],
+                 sten.inv_area, x["neumann"]] + link_tensors(U),
+                list(ops.poisson_rhs(x["pr"], x["pi"], True))),
+        }
+        for name, (kernel, plain, ins, outs) in calls.items():
+            bound, by = bound_ms(name, form, ins, outs)
+            rec = dict(members=B, form=form, max_abs_err=c["err"][name],
+                       ms=queued_ms(kernel, 200, cycles_per_ms),
+                       plain_ms=queued_ms(plain, 1, cycles_per_ms,
+                                          repeats=11),
+                       bound_ms=bound, bound_by=by,
+                       bytes=sum(t.numel() * t.element_size()
+                                 for t in ins + outs))
+            rec["ms_per_member"] = rec["ms"] / B
+            rec["bound_share"] = bound / rec["ms"]
+            what = ("abs_sq form" if name == "fused_psi_update"
+                    else "J_s form")
+            log(f"  float32 {form} {name} ({what}) at B={B}: device"
+                f" {rec['ms']:.5f} ms per launch ({rec['ms_per_member']:.5f}"
+                f" per member), plain {rec['plain_ms']:.5f} ms; bound"
+                f" {bound:.5f} ms ({by}, {rec['bytes']} bytes), share"
+                f" {100 * rec['bound_share']:.1f}%")
+            out[name][form] = rec
+    return out
+
+
+def check_witnesses(batch, alone, members, steps, label):
+    """Members of a sweep against the same members run alone: their probe
+    phase traces over the first ``steps`` steps, relative to the largest
+    phase alone. Returns ``{member: error}`` and the difference between
+    the first two members' own traces alone."""
+    import numpy as np
+
+    def trace(result, b):
+        return result.dynamics_theta[b][:, :steps]
+
+    err = {}
+    for b in members:
+        ref = trace(alone[b], 0)
+        err[b] = float(np.abs(trace(batch, b) - ref).max()
+                       / np.abs(ref).max())
+        log(f"  {label}: member {b} against its run alone, probe phase"
+            f" trace max rel difference {err[b]:.3e} over the first"
+            f" {steps} steps")
+    b0, b1 = members[:2]
+    ref = trace(alone[b1], 0)
+    apart = float(np.abs(trace(alone[b0], 0) - ref).max()
+                  / np.abs(ref).max())
+    log(f"  {label}: members {b0} and {b1} alone: probe phase traces max"
+        f" rel difference {apart:.3e}")
+    return err, apart
+
+
+def run_screened_sweep_path(pkg, args, solver, device, ell_device, ell_op,
+                            options):
+    """Phase 14: screened sweeps (see the module docstring). Returns the
+    numbers it prints."""
+    import numpy as np
+    import torch
+
+    from tdgl_tpu_torch.ops.screening import induced_vector_potential
+    from tdgl_tpu_torch.parallel import solve_sweep
+
+    B = 8
+    scales = np.linspace(0.25, 2.0, B)
+    kernels = check_screened_batch_kernels(solver, B, sleep_cycles_per_ms())
+    scr_opts = dict(options, solve_time=1e9,
+                    save_every=args.screen_sweep_chunk,
+                    include_screening=True, screening_tolerance=1e-3,
+                    screening_kernel="fft", screening_solver="anderson")
+    runs, results = {}, {}
+
+    def screened_sweep(dev, opts, label, field_scales, max_steps):
+        result, rec, steps_out = run_sweep(
+            pkg, dev, opts, label, applied_vector_potential=0.5,
+            field_scales=field_scales, max_steps=max_steps,
+            raise_on_failure=False)
+        assert np.isfinite(result.psi).all() and np.isfinite(
+            result.mu).all(), label
+        return result, rec, steps_out
+
+    # The structured film: 8 members and 1 (scale 1.0) over the same steps.
+    for members, sc in ((B, scales), (1, scales[3:4])):
+        label = f"screened field sweep (structured, float32, B={members})"
+        result, rec, _ = screened_sweep(device, scr_opts, label, sc,
+                                        args.screen_sweep_steps)
+        runs[label] = rec
+        results[members] = result
+        # psi and RHS (J_s form) launch once per fixed-point iteration of
+        # the batch; psi more only on discriminant retries.
+        assert rec["launches"]["fused_poisson_rhs"] == \
+            rec["batch_iterations"], rec
+        assert rec["launches"]["fused_psi_update"] >= \
+            rec["batch_iterations"], rec
+        for b in np.flatnonzero(rec["failed"]):
+            # A failed member must fail alone too, at the same step.
+            alone, _, _ = screened_sweep(
+                device, scr_opts, f"member {b} alone", sc[b:b + 1],
+                args.screen_sweep_steps)
+            log(f"  member {b} (scale {sc[b]}) failed at step"
+                f" {result.steps[b]} in the batch; alone: failed"
+                f" {alone.failed.tolist()} at step {alone.steps.tolist()}")
+            assert alone.failed[0] and alone.steps[0] == result.steps[b]
+        assert min(rec["steps"]) >= args.screen_sweep_steps or any(
+            rec["failed"]), rec["steps"]
+    batch = results[B]
+    psi_sq = np.mean(np.abs(batch.psi) ** 2, axis=1)
+    log(f"  structured screened sweep: mean |psi|^2 by scale"
+        f" {np.round(psi_sq, 4).tolist()}; members x steps/s B={B}"
+        f" {runs[f'screened field sweep (structured, float32, B={B})']['member_steps_per_s']:.2f},"
+        f" B=1 {runs['screened field sweep (structured, float32, B=1)']['member_steps_per_s']:.2f}")
+    assert psi_sq[-1] < psi_sq[0], psi_sq
+    # Witnesses: members 1 and 7 each run alone.
+    wit_opts = dict(scr_opts, save_every=SCREEN_WITNESS_STEPS)
+    alone = {b: screened_sweep(device, wit_opts, f"member {b} alone",
+                               scales[b:b + 1], SCREEN_WITNESS_STEPS)[0]
+             for b in (1, B - 1)}
+    witness_err, witness_apart = check_witnesses(
+        batch, alone, (1, B - 1), SCREEN_WITNESS_STEPS,
+        "screened field sweep")
+    assert max(witness_err.values()) < WITNESS_RTOL < witness_apart, (
+        witness_err, witness_apart)
+
+    # float64 on the small film: each member against a single robust run.
+    small = small_device(pkg)
+    o64 = dict(solve_time=0.002, dt_init=1e-4, adaptive=False,
+               save_every=21, dtype="float64", field_units="mT",
+               current_units="uA", chunk_failover="off",
+               include_screening=True, screening_tolerance=1e-4,
+               screening_error_norm="global")
+    small_scales = [0.5, 1.0, 2.0]
+    inputs = dict(terminal_currents=dict(source=3.0, drain=-3.0))
+    sw, rec64, out64 = run_sweep(pkg, small, o64,
+                                 "screened sweep (small film, float64)",
+                                 applied_vector_potential=0.5,
+                                 field_scales=small_scales, **inputs)
+    assert not any(rec64["failed"])
+    worst = 0.0
+    for b, s in enumerate(small_scales):
+        single = pkg.TDGLSolver(small, pkg.SolverOptions(**o64),
+                                applied_vector_potential=0.5 * s,
+                                torch_device="cuda", **inputs)
+        state = single._initial_state()
+        its = []
+        while not bool(state.done):
+            state, outputs, _ = single.chunk_fn(state)
+            valid = outputs.valid.cpu().numpy() > 0
+            its += outputs.screening_iterations.cpu().numpy()[valid].tolist()
+        data = single._state_to_arrays({
+            "psi_real": state.psi_r, "psi_imag": state.psi_i,
+            "mu": state.mu, "supercurrent": state.supercurrent,
+            "normal_current": state.normal_current,
+            "induced_vector_potential": state.A_induced})
+        batch_its = out64["screening_iterations"][b][
+            out64["valid"][b] > 0].tolist()
+        assert int(state.step) == int(sw.steps[b]), (b, int(state.step))
+        assert its == batch_its, (b, its, batch_its)
+        for name, got in (("psi", sw.psi[b]), ("mu", sw.mu[b])):
+            ref = data[name]
+            worst = max(worst, float(np.abs(got - ref).max()
+                                     / np.abs(ref).max()))
+    log(f"  float64 small film, {len(small_scales)}-member screened sweep"
+        f" vs single robust runs: steps {sw.steps.tolist()}, equal"
+        f" screening iterations, max rel err {worst:.3e}")
+    assert worst < 1e-10, worst
+
+    # The ELL backend: the pairwise kernel, 8 members and 1.
+    ell_opts = dict(scr_opts, screening_kernel="auto",
+                    save_every=args.screen_sweep_ell_steps)
+    for members, sc in ((B, scales), (1, scales[3:4])):
+        label = f"screened field sweep (ELL, float32, B={members})"
+        result, rec, _ = screened_sweep(ell_device, ell_opts, label, sc,
+                                        args.screen_sweep_ell_steps)
+        runs[label] = rec
+        assert not any(rec["failed"]), rec
+        assert rec["launches"] == {"fused_psi_update": 0,
+                                   "fused_poisson_rhs": 0}
+    # One pairwise evaluation at B members and at 1 (device time).
+    n, e = ell_op.sites.shape[0], ell_op.edge_centers.shape[0]
+    rng = np.random.default_rng(23)
+    pairwise = {}
+    for members in (B, 1):
+        Jw = torch.tensor(rng.normal(size=(members, n, 2)),
+                          dtype=torch.float32, device="cuda")
+        Jw = Jw if members > 1 else Jw[0]
+        records = device_records(lambda: induced_vector_potential(
+            ell_op.edge_centers, ell_op.sites, Jw))
+        # Per (edge, site) pair: the distance (2 differences, 2 squares,
+        # an add, a clamp, an rsqrt) once, and 2 multiply-adds per member.
+        bound = max(4 * (2 * e + 2 * n + 2 * members * (n + e))
+                    / HBM_BYTES_PER_S,
+                    (7 + 4 * members) * e * n / F32_OPS_PER_S) * 1e3
+        pairwise[members] = dict(
+            ms=sum(us for us, _, _ in records) / 1e3,
+            records=sum(c for _, c, _ in records), bound_ms=bound)
+    ratio = pairwise[B]["ms"] / pairwise[1]["ms"]
+    log(f"  one pairwise induced-potential evaluation ({e} edges x {n}"
+        f" sites): device {pairwise[B]['ms']:.3f} ms at B={B},"
+        f" {pairwise[1]['ms']:.3f} ms at B=1 (ratio {ratio:.3f}); bounds"
+        f" {pairwise[B]['bound_ms']:.3f} / {pairwise[1]['bound_ms']:.3f} ms"
+        f" (operations, float32)")
+    return dict(kernels=kernels, runs=runs, small_f64_max_rel_err=worst,
+                witness_rel_err=witness_err, witness_apart=witness_apart,
+                pairwise_eval=pairwise, pairwise_ratio=ratio)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--chunk", type=int, default=500,
@@ -1730,14 +2098,15 @@ def main() -> int:
     parser.add_argument("--solve-time", type=float, default=9.8,
                         help="simulated time of phases 6-7 (the default"
                         " takes about 1,000 steps)")
-    parser.add_argument("--ramp-time", type=float, default=9.8,
+    # Phases 9 and 10 are cut to this depth to fit phase 14 in the limit.
+    parser.add_argument("--ramp-time", type=float, default=6.0,
                         help="simulated time of phase 9's traced ramp (the"
                         " inputs ramp over its first half)")
     parser.add_argument("--ramp-chunk", type=int, default=500,
                         help="steps per chunk of phase 9")
-    parser.add_argument("--screen-time", type=float, default=4.8,
+    parser.add_argument("--screen-time", type=float, default=2.4,
                         help="simulated time of phase 10's screened solve"
-                        " (the default takes about 500 steps)")
+                        " (the default takes about 250 steps)")
     parser.add_argument("--screen-chunk", type=int, default=200,
                         help="steps per chunk of phase 10")
     parser.add_argument("--ell-time", type=float, default=9.8,
@@ -1759,6 +2128,15 @@ def main() -> int:
                         help="steps per chunk of phase 13's sweeps")
     parser.add_argument("--sweep-ell-steps", type=int, default=100,
                         help="steps per member of phase 13's ELL sweep")
+    parser.add_argument("--screen-sweep-steps", type=int, default=50,
+                        help="steps per member of phase 14's structured"
+                        " screened sweeps")
+    parser.add_argument("--screen-sweep-chunk", type=int, default=25,
+                        help="steps per chunk of phase 14's structured"
+                        " screened sweeps")
+    parser.add_argument("--screen-sweep-ell-steps", type=int, default=10,
+                        help="steps per member (and per chunk) of phase"
+                        " 14's ELL screened sweeps")
     args = parser.parse_args()
 
     import torch
@@ -2142,7 +2520,7 @@ def main() -> int:
             f" {induced_ms['site']:.4f} ms (device, queued)")
 
     with Phase("unstructured (ELL) main path at full width"):
-        ell, ell_device = run_ell_main_path(ttdgl, args, inputs)
+        ell, ell_device, ell_op = run_ell_main_path(ttdgl, args, inputs)
 
     with Phase("checkpoint resume and seed (both backends)"), \
             tempfile.TemporaryDirectory() as tmp:
@@ -2154,6 +2532,10 @@ def main() -> int:
     with Phase("batched sweeps (solve_sweep)"):
         sweep = run_sweep_path(ttdgl, args, solver, device, ell_device,
                                options, inputs)
+
+    with Phase("screened sweeps (solve_sweep, include_screening)"):
+        screened_sweep = run_screened_sweep_path(
+            ttdgl, args, solver, device, ell_device, ell_op, options)
 
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
@@ -2188,6 +2570,11 @@ def main() -> int:
     for key, run in sweep["runs"].items():
         by_path[key] = run["launches"]
         slots_by_path[key] = run["slots"]
+    # Phase 14: the same for each screened sweep (psi and the RHS's J_s
+    # form launch once per fixed-point iteration of the batch).
+    for key, run in screened_sweep["runs"].items():
+        by_path[key] = run["launches"]
+        slots_by_path[key] = run["slots"]
 
     def record(name, source, replaces):
         fac = timings[name]["factored"]
@@ -2207,6 +2594,10 @@ def main() -> int:
             # Phase 13: one launch for 8 members (factored, per-member
             # links), against 8 single launches, and its bound.
             batch=sweep["kernels"][name],
+            # Phase 14: the form a screened batch launches (psi with the
+            # |psi|^2 plane, the RHS writing J_s) at 8 members with
+            # per-member links, raw (the screened step's) and factored.
+            batch_screened=screened_sweep["kernels"][name],
         )
         if name == "fused_poisson_rhs":
             # The J_s-writing form, in the raw link form that the screened
@@ -2231,7 +2622,10 @@ def main() -> int:
                     "induced_ms": induced_ms, "ell": ell,
                     "resume": resume,
                     "sweep": {k: v for k, v in sweep.items()
-                              if k != "kernels"}}))
+                              if k != "kernels"},
+                    "screened_sweep": {k: v for k, v in
+                                       screened_sweep.items()
+                                       if k != "kernels"}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -149,8 +149,9 @@ def grid_state_to_torch(state, device: DeviceLike,
     from ``template``, and the scalars from its ``diagnostics``
     (``done``/``failed`` included). Either form may be a batch of a
     parameter sweep (the JAX package's vmapped state or export, numpy
-    arrays with a leading member axis B, diagnostics ``(B, 6)``); a batched
-    export needs a batched ``template``.
+    arrays with a leading member axis B, diagnostics ``(B, 6)``; a screened
+    batch's ``A_induced`` per member); a batched export needs a batched
+    ``template``.
     """
     if not isinstance(state, Mapping):
         return GridState(*(to_tensor(getattr(state, f), device)

@@ -143,14 +143,14 @@ def edge_quantity_to_sites(op, F_edge: torch.Tensor, n_sites: int,
 
     Summed over each site's ELL slots (its incident edges), so no scatter
     is needed. ``unit_dirs`` (:func:`unit_edge_directions`) may be passed
-    precomputed.
+    precomputed. A ``(B, E)`` batch of fluxes gives ``(B, N, 2)``.
     """
     del n_sites  # implied by the tables; kept for the JAX signature
     if unit_dirs is None:
         unit_dirs = unit_edge_directions(op, F_edge.dtype)
     mask = op.nbr_mask.to(F_edge.dtype)
-    flux = (F_edge[:, None] * unit_dirs)[op.nbr_edge]   # (N, K, 2)
-    sums = torch.sum(flux * mask[..., None], dim=1)
+    flux = (F_edge[..., None] * unit_dirs)[..., op.nbr_edge, :]  # (N, K, 2)
+    sums = torch.sum(flux * mask[..., None], dim=-2)
     counts = torch.sum(mask, dim=1)
     return sums / (2.0 * torch.clamp(counts, min=1.0))[:, None]
 

@@ -105,11 +105,16 @@ def _split_round(spectrum, rdt, cdt) -> np.ndarray:
 def _convolve(spectrum: torch.Tensor, J_weighted: torch.Tensor
               ) -> torch.Tensor:
     """``irfft2(spectrum * rfft2(zero-padded J))`` cropped to the
-    unaliased quadrant: ``(..., 2, Rp, Cp)`` for ``J_weighted`` ``(Rp, Cp,
-    2)`` and a spectrum ``(..., 2*Rp, Cp + 1)``."""
-    Rp, Cp = J_weighted.shape[:2]
+    unaliased quadrant, for ``J_weighted`` ``(..., Rp, Cp, 2)`` (any
+    leading member axes): ``(..., 3, 2, Rp, Cp)`` for the per-class
+    spectrum ``(3, 2*Rp, Cp + 1)``, ``(..., 2, Rp, Cp)`` for the site
+    spectrum ``(2*Rp, Cp + 1)``. The spectrum is shared by all members."""
+    Rp, Cp = J_weighted.shape[-3:-1]
     s = (2 * Rp, 2 * Cp)
-    Jhat = torch.fft.rfft2(J_weighted.permute(2, 0, 1), s=s)  # (2, 2Rp, Cp+1)
+    # (..., 2, 2Rp, Cp+1)
+    Jhat = torch.fft.rfft2(J_weighted.movedim(-1, -3), s=s)
+    if spectrum.dim() == 3:
+        Jhat = Jhat.unsqueeze(-4)
     A = torch.fft.irfft2(spectrum.unsqueeze(-3) * Jhat, s=s)
     return A[..., :Rp, :Cp]
 
@@ -122,13 +127,15 @@ def induced_vector_potential_fft(fft_data: FFTScreeningData, sten,
         fft_data: :class:`FFTScreeningData` of tensors for this mesh.
         sten: :class:`StencilOperators` (tensors; for the edge mask).
         J_weighted: ``(Rp, Cp, 2)`` site current density times site area
-            and physical prefactor (zero at masked sites).
+            and physical prefactor (zero at masked sites), or a ``(B, Rp,
+            Cp, 2)`` batch of members (one batched transform each way).
 
     Returns:
-        ``(3, Rp, Cp, 2)`` induced vector potential at edge centers (zero
-        at masked edges), in ``J_weighted``'s dtype.
+        ``(3, Rp, Cp, 2)`` (or ``(B, 3, Rp, Cp, 2)``) induced vector
+        potential at edge centers (zero at masked edges), in
+        ``J_weighted``'s dtype.
     """
-    A = _convolve(fft_data.Ghat, J_weighted).permute(0, 2, 3, 1)
+    A = _convolve(fft_data.Ghat, J_weighted).movedim(-3, -1)
     return (A * sten.edge_valid[..., None].to(A.dtype)).to(J_weighted.dtype)
 
 
@@ -220,20 +227,20 @@ def build_site_interp_taps(sten, maps, grid, n_taps: int = 12):
 
 def _interp_site_to_edges(sten, A_site: torch.Tensor,
                           J_weighted: torch.Tensor, taps) -> torch.Tensor:
-    """Cubic-interpolate site potentials ``(Rp, Cp, 2)`` onto the 3 edge
-    classes and add the exact near-field tap corrections
+    """Cubic-interpolate site potentials ``(..., Rp, Cp, 2)`` onto the 3
+    edge classes and add the exact near-field tap corrections
     (:func:`build_site_interp_taps`); same operation order as the JAX
     package. ``torch.roll`` shifts like ``jnp.roll``."""
     outs = []
     for k, (dr, dc) in enumerate(EDGE_OFFSETS):
         acc = None
         for j, w in _CUBIC_W:
-            term = torch.roll(A_site, (-j * dr, -j * dc), dims=(0, 1))
+            term = torch.roll(A_site, (-j * dr, -j * dc), dims=(-3, -2))
             acc = w * term if acc is None else acc + w * term
         for (a, b), v in taps[k]:
-            acc = acc + v * torch.roll(J_weighted, (a, b), dims=(0, 1))
+            acc = acc + v * torch.roll(J_weighted, (a, b), dims=(-3, -2))
         outs.append(acc)
-    A = torch.stack(outs, dim=0)                         # (3, Rp, Cp, 2)
+    A = torch.stack(outs, dim=-4)                   # (..., 3, Rp, Cp, 2)
     return A * sten.edge_valid[..., None].to(A.dtype)
 
 
@@ -245,7 +252,8 @@ def induced_vector_potential_fft_site(fft_data: FFTScreeningData, sten,
     interpolated to the 3 edge classes and corrected in the near field
     with the static tap stencils ``taps`` (1/3 of the inverse transforms).
     Residual ~3e-4 relative for smooth currents (the JAX package's
-    measurement), the float32 screening floor's order."""
-    A_site = _convolve(fft_data.G0hat, J_weighted).permute(1, 2, 0)
+    measurement), the float32 screening floor's order. Takes a batch as
+    :func:`induced_vector_potential_fft` does."""
+    A_site = _convolve(fft_data.G0hat, J_weighted).movedim(-3, -1)
     return _interp_site_to_edges(sten, A_site, J_weighted,
                                  taps).to(J_weighted.dtype)

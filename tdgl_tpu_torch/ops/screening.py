@@ -27,21 +27,31 @@ def induced_vector_potential(
         sites: ``(S, 2)`` site positions, all different from every edge
             center (true on a triangular mesh).
         J_weighted: ``(S, 2)`` current density times site area (and any
-            physical prefactor).
+            physical prefactor), or a ``(B, S, 2)`` batch of members: each
+            ``(block, S)`` inverse-distance tile is then built once and
+            multiplied by all members at once, as an ``(S, 2B)`` operand.
         block_size: Edge-block size; bounds the (block, S) intermediate.
 
     Returns:
-        ``(E, 2)`` induced vector potential, in ``J_weighted``'s dtype.
+        ``(E, 2)`` (or ``(B, E, 2)``) induced vector potential, in
+        ``J_weighted``'s dtype.
     """
     dtype = J_weighted.dtype
     edge_centers = edge_centers.to(dtype)
     sites = sites.to(dtype)
     tiny = torch.finfo(dtype).tiny
+    lead = J_weighted.shape[:-2]
+    # A batch's members side by side in the columns: (S, 2B).
+    J = (J_weighted if not lead
+         else J_weighted.movedim(0, -2).reshape(sites.shape[0], -1))
     out = []
     for start in range(0, edge_centers.shape[0], block_size):
         ec = edge_centers[start:start + block_size]
         dx = ec[:, 0, None] - sites[None, :, 0]
         dy = ec[:, 1, None] - sites[None, :, 1]
         inv_d = torch.rsqrt(torch.clamp(dx * dx + dy * dy, min=tiny))
-        out.append(inv_d @ J_weighted)
-    return torch.cat(out) if out else J_weighted.new_zeros((0, 2))
+        out.append(inv_d @ J)
+    A = torch.cat(out) if out else J.new_zeros((0, J.shape[-1]))
+    if not lead:
+        return A
+    return A.reshape(A.shape[0], *lead, 2).movedim(-2, 0)

@@ -8,16 +8,23 @@ batch over a device mesh; here the batch is a leading member axis of the
 solver state on one device, and the robust chunk of either backend
 (:mod:`tdgl_tpu_torch.solver.grid_step`, :mod:`tdgl_tpu_torch.solver.step`)
 advances all members with one op sequence: one launch of each CUDA step
-kernel per step for the whole batch on the structured backend. Every loop
-of that program gates its updates per member, as the JAX package's vmapped
+kernel per step (per screening fixed-point iteration, with screening) for
+the whole batch on the structured backend. Every loop of that program
+gates its updates per member, as the JAX package's vmapped
 ``while_loop``s do, so each member follows the trajectory it would follow
-alone.
+alone. A screened sweep carries each member's induced potential; each
+fixed-point iteration evaluates it for all members at once (one batched
+FFT convolution, or one pairwise sum whose distance tiles serve every
+member), and each member file holds its member's induced potential.
 
 What differs from the JAX package:
 
 * ``mesh`` (a ``jax.sharding.Mesh``) has no counterpart: multi-device
   sharding is not ported, and anything but None raises.
-* Screened sweeps raise ``NotImplementedError``.
+* On the ELL backend the screening fixed point of a finished member's
+  ghost steps runs no iteration (the JAX ELL loop does not test ``done``
+  and, under ``vmap``, spins on them): less work, the same results
+  (:mod:`tdgl_tpu_torch.solver.step`).
 * ``field_scales`` with a time-dependent traced applied potential raises
   ``ValueError``: the JAX step replaces the member-scaled potential with
   the unscaled ``A_fn(t)`` from its first step on, so every member runs
@@ -40,7 +47,7 @@ import torch
 
 from ..device.device import Device
 from ..solver.options import SolverOptions
-from ..solver.solver import TDGLSolver, _host_currents, _not_ported
+from ..solver.solver import TDGLSolver, _host_currents
 from ..utils import h5lite
 
 logger = logging.getLogger(__name__)
@@ -271,8 +278,9 @@ def solve_sweep(
             is not ported).
         max_steps: Step cap (default: generous bound from dt_init).
         raise_on_failure: Raise ``RuntimeError`` if any member fails
-            (discriminant-retry exhaustion). When False, failures are
-            reported in ``SweepResult.failed`` instead.
+            (discriminant-retry exhaustion / screening non-convergence).
+            When False, failures are reported in ``SweepResult.failed``
+            instead.
         output_dir: If given, write each member's final state to
             ``{output_dir}/member_{b:03d}.h5`` in the standard output
             schema and return full :class:`tdgl_tpu_torch.Solution` objects
@@ -294,9 +302,6 @@ def solve_sweep(
             " sharding is not ported (ROADMAP Queue 1 item 6). Pass"
             " mesh=None."
         )
-    if options.include_screening:
-        raise _not_ported("A screened sweep (solve_sweep with"
-                          " include_screening)", "screened sweeps")
     scales = np.asarray(
         field_scales if field_scales is not None else current_scales,
         dtype=float,
@@ -365,7 +370,8 @@ def solve_sweep(
     base_state = solver._initial_state()
     psi_fields = (("psi_r", "psi_i") if structured else ("psi",))
     per_member = psi_fields + ("mu", "mu_prev", "supercurrent",
-                               "normal_current", "dpsi_window")
+                               "normal_current", "A_induced",
+                               "dpsi_window")
     scales_t = torch.as_tensor(scales, dtype=rd, device=dev)
 
     def bscale(leaf):
@@ -384,10 +390,12 @@ def solve_sweep(
     chunk_size = solver.chunk_size
     if structured:
         def batched_chunk(st):
-            return solver._raw_chunk_fn(solver.sten, solver.amg, st, None)
+            return solver._raw_chunk_fn(solver.sten, solver.amg, st,
+                                        solver._screening)
     else:
         def batched_chunk(st):
-            return solver._raw_chunk_fn(solver.op, None, solver.amg, st)
+            return solver._raw_chunk_fn(solver.op, solver._screening,
+                                        solver.amg, st)
 
     if max_steps is None:
         max_steps = int(

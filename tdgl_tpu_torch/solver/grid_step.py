@@ -18,15 +18,20 @@ members of a parameter sweep, :mod:`tdgl_tpu_torch.parallel`) when the
 state's fields carry a leading member axis: ``psi_r`` is ``(B, Rp, Cp)``
 and the scalars are ``(B,)``; fields that all members share (the applied
 potential of a current sweep, ``epsilon``, ``dA_dt``, the Neumann term of
-a field sweep, ``A_induced``) may keep their single-run shapes. Both
-kernels then launch once per step for the whole batch. The robust
-program's loops gate per member, as the JAX package's vmapped
-``while_loop``s do: the discriminant retries shrink ``dt`` only for the
-members that fail, and the top-up CG keeps a converged member's iterate,
-each loop reading one flag per iteration for the batch. The adaptive
-window, ``done`` and ``failed`` are per member, and a finished member is
-frozen (ghost steps) while the others go on. Outputs are ``(B, T, ...)``.
-Screening and a traced Neumann term are single-run only.
+a field sweep, an unscreened ``A_induced``) may keep their single-run
+shapes. Both kernels then launch once per step (per fixed-point iteration
+with screening) for the whole batch. The robust program's loops gate per
+member, as the JAX package's vmapped ``while_loop``s do: the discriminant
+retries shrink ``dt`` only for the members that fail, the top-up CG keeps
+a converged member's iterate, and the screening fixed point
+(:func:`~tdgl_tpu_torch.solver.step.screening_fixed_point`) keeps a
+member's carry once it has converged, each loop reading one flag per
+iteration for the batch. The screened batch carries ``A_induced`` per
+member, so its links are per member; the induced potential of all members
+comes from one batched convolution (or pairwise sum) per iteration. The
+adaptive window, ``done`` and ``failed`` are per member, and a finished
+member is frozen (ghost steps) while the others go on. Outputs are ``(B,
+T, ...)``. A traced Neumann term is single-run only.
 
 Eager PyTorch cannot drop dead work the way XLA does, so a step forms only
 what it uses: the unscreened step forms neither the supercurrent nor the
@@ -47,7 +52,8 @@ from ..ops.cg import solve_mu_poisson_grid
 from ..ops.step_kernels import StencilOperands, StepOperands
 from .step import (StepConfig, StepOutputs, adaptive_window,
                    induced_potential_update, member_view, plane_max,
-                   retry_members, screening_error, traced_per_member)
+                   retry_members, screening_error, screening_fixed_point,
+                   traced_per_member, vector_scale)
 
 
 class GridState(NamedTuple):
@@ -159,9 +165,10 @@ def make_grid_step_fn(cfg: StepConfig):
             return fs.induced_vector_potential_fft(fft_data, sten, Jw)
         from ..ops.screening import induced_vector_potential
 
+        lead = Jw.shape[:-3]
         A_flat = induced_vector_potential(aux["ec_xy"], aux["sites_xy"],
-                                          Jw.reshape(-1, 2))
-        return (A_flat.reshape((3,) + Jw.shape)
+                                          Jw.reshape(lead + (-1, 2)))
+        return (A_flat.reshape(lead + (3,) + Jw.shape[-3:])
                 * aux["edge_valid"][..., None])
 
     def gate_residual(fail, cg_res, rdtype):
@@ -178,11 +185,9 @@ def make_grid_step_fn(cfg: StepConfig):
              aux):
         rdtype = state.mu.dtype
         time = state.time
-        if time.dim() and (cfg.include_screening
-                           or cfg.mu_boundary_fn is not None):
+        if time.dim() and cfg.mu_boundary_fn is not None:
             raise NotImplementedError(
-                "member-batched chunks run unscreened, without a traced"
-                " Neumann term")
+                "member-batched chunks run without a traced Neumann term")
         rebound = {}
         if cfg.A_fn is not None:
             A_applied = traced_per_member(cfg.A_fn, time).to(rdtype)
@@ -234,18 +239,16 @@ def make_grid_step_fn(cfg: StepConfig):
 
         if cfg.include_screening:
             weights, fft_data = screening
-            tol = cfg.screening_tolerance
             # Denominator floor of the global criterion: anything below
             # 1e-2 |A_applied| max contributes negligibly to the links.
-            app_scale = torch.max(torch.sqrt(
-                torch.sum(A_applied * A_applied, dim=-1)))
+            app_scale = vector_scale(A_applied, 4)
 
             def s_body(s, carry):
                 """One fixed-point iteration (iteration ``s``) from
-                ``carry = (dt, A_ind, velocity, x_prev, pr, pi, mu)``; the
-                psi update starts from the iterate with the step's
+                ``carry = (dt, A_ind, velocity, x_prev, pr, pi, mu, ...)``;
+                the psi update starts from the iterate with the step's
                 ``|psi|^2``, as the reference does."""
-                dt, A_ind, velocity, x_prev, pr_n, pi_n, mu_n = carry
+                dt, A_ind, velocity, x_prev, pr_n, pi_n, mu_n = carry[:7]
                 (pr_u, pi_u, sq_u, mu_u, J_s_u, J_n_u, dt_u, fail_i,
                  cg_iters_u, cg_res_u) = tdgl_update(
                     pr_n, pi_n, mu_n, A_ind, dt,
@@ -255,42 +258,30 @@ def make_grid_step_fn(cfg: StepConfig):
                 Jw = J_site * aux["screen_w"]
                 A_new = induced_potential(sten, fft_data, aux, Jw)
                 A_ind_u, velocity_u, x_prev_u, dA = induced_potential_update(
-                    cfg, s, A_ind, A_new, velocity, x_prev)
-                err_u = screening_error(cfg, dA, A_ind_u, app_scale)
-                carry_u = (dt_u, A_ind_u, velocity_u, x_prev_u, pr_u, pi_u,
-                           mu_u)
-                return carry_u, (sq_u, fail_i, cg_iters_u, cg_res_u, err_u)
+                    cfg, s, A_ind, A_new, velocity, x_prev, 4)
+                err_u = screening_error(cfg, dA, A_ind_u, app_scale, 4)
+                return ((dt_u, A_ind_u, velocity_u, x_prev_u, pr_u, pi_u,
+                         mu_u, sq_u, cg_iters_u, cg_res_u), fail_i, err_u)
 
-            carry = (dt0, state.A_induced, torch.zeros_like(state.A_induced),
-                     state.A_induced, state.psi_r, state.psi_i, state.mu)
             big = torch.full((), 1e30, dtype=rdtype, device=state.mu.device)
-            out = (old_sq, torch.zeros_like(state.done), aux["zero_i32"],
-                   big, big)
-            fail = torch.zeros_like(state.done)
-            s = 0
+            carry = (dt0, state.A_induced, torch.zeros_like(state.A_induced),
+                     state.A_induced, state.psi_r, state.psi_i, state.mu,
+                     old_sq, aux["zero_i32"], big)
             if cfg.fast_chunk:
                 # One inline iteration; the tolerance gate below trips
                 # chunk failover when a step needs more.
-                carry, out = s_body(0, carry)
-                fail = torch.logical_or(fail, out[1])
-                s = 1
-            elif not bool(state.done):
-                # The robust program's loop, with a host read of the error
-                # per iteration; a frozen (done) ghost step runs none, as
-                # the JAX loop's condition tests state.done.
-                while s <= cfg.max_iterations_per_step:
-                    carry, out = s_body(s, carry)
-                    fail = torch.logical_or(fail, out[1])
-                    s += 1
-                    if not bool(out[4] >= tol):
-                        break
-            dt_used, A_induced, _, _, pr_n, pi_n, mu_n = carry
-            sq_n, _, cg_iters, cg_res, err = out
-            fail = torch.logical_or(fail, err >= tol)
+                carry, fail, err = s_body(0, carry)
+                screening_iters = aux["one_i32"]
+            else:
+                # The robust program's loop, gated per member; a frozen
+                # (done) ghost step runs none, as the JAX loop's condition
+                # tests state.done.
+                carry, err, fail, screening_iters = screening_fixed_point(
+                    cfg, s_body, carry, big, state.done)
+            (dt_used, A_induced, _, _, pr_n, pi_n, mu_n, sq_n, cg_iters,
+             cg_res) = carry
+            fail = torch.logical_or(fail, err >= cfg.screening_tolerance)
             fail = gate_residual(fail, cg_res, rdtype)
-            screening_iters = (aux["one_i32"] if cfg.fast_chunk
-                               else torch.full((), s, dtype=torch.int32,
-                                               device=state.mu.device))
         else:
             guess = (2.0 * state.mu - state.mu_prev if cfg.poisson_predictor
                      else None)

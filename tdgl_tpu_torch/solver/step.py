@@ -20,19 +20,28 @@ fixed point (Anderson(1) or Polyak, global or per-edge error), and the
 adaptive dt. The JAX package's ``while_loop``s become Python loops that
 read their condition from the device: per step, one read of ``done``, one
 of the psi update's ``ok`` (adaptive dt) per attempt, one per CG stopping
-test, and, with screening, one of the fixed-point error per iteration. The
-ELL backend has no fast chunk program (as in the JAX package).
+test, and, with screening, one of the fixed point's continue flag per
+iteration and one before the first (:func:`screening_fixed_point`). The ELL backend has no fast chunk program
+(as in the JAX package).
 
 The ELL chunk also runs a batch of B independent runs (the members of a
 parameter sweep) when the state carries a leading member axis (``psi``
 ``(B, N, 2)``, the scalars ``(B,)``; shared fields keep their single-run
 shapes), with the loops gated per member as the JAX package's vmapped
 ``while_loop``s are: per step one read of ``all(done)``, one of
-``any(!ok)`` per attempt and one per CG iteration for the whole batch. A
+``any(!ok)`` per attempt, one per CG iteration and, with screening, one
+of ``any(active)`` per fixed-point iteration for the whole batch. A
 finished member is frozen while the others go on, and its slots emit
-zeros. Screening and a traced Neumann term are single-run only. The
-helpers below (:func:`adaptive_window`, :func:`retry_members`, ...) serve
-both backends.
+zeros. A traced Neumann term is single-run only. The helpers below
+(:func:`adaptive_window`, :func:`retry_members`,
+:func:`screening_fixed_point`, ...) serve both backends.
+
+One departure from the JAX ELL program, in work done and not in results:
+the JAX ELL fixed point does not test ``done``, so under ``vmap`` a member
+that has finished (or failed) spins up to ``max_iterations_per_step``
+iterations on every later ghost step of its batch, whose results the
+chunk then discards. Here the ELL fixed point is gated on ``done`` as the
+structured one is, so a ghost step runs no iteration.
 """
 
 from __future__ import annotations
@@ -259,14 +268,24 @@ def export_state_arrays(state: SolverState):
     )
 
 
+def member_sum(x: torch.Tensor, nd: int) -> torch.Tensor:
+    """``sum(x)`` over the last ``nd`` dims: the whole tensor for a single
+    run, per member for a batch."""
+    if x.dim() == nd:
+        return torch.sum(x)
+    return torch.sum(x, dim=tuple(range(-nd, 0)))
+
+
 def induced_potential_update(cfg: StepConfig, s: int, A_ind, A_new,
-                             velocity, x_prev):
+                             velocity, x_prev, nd: int):
     """One update of the screening fixed point (iteration ``s``) from the
     iterate ``A_ind`` and its image ``A_new``: depth-1 Anderson (secant)
     acceleration, where ``velocity`` carries the previous residual and
     ``x_prev`` the previous iterate, or the Polyak heavy ball. Shared by
-    both backends (any layout with the x/y pair last). Returns
-    ``(A_ind, velocity, x_prev, dA)`` after the update."""
+    both backends (any layout with the x/y pair last); ``nd`` is the rank
+    of one member's potential, so a batch (one more leading dim) takes
+    Anderson's coefficient per member. Returns ``(A_ind, velocity,
+    x_prev, dA)`` after the update."""
     dA = A_new - A_ind
     if not cfg.screening_anderson:
         velocity = ((1.0 - cfg.screening_step_drag) * velocity
@@ -276,25 +295,66 @@ def induced_potential_update(cfg: StepConfig, s: int, A_ind, A_new,
         A_ind_u = A_ind + cfg.screening_step_size * dA
     else:
         dr = dA - velocity
-        denom = torch.clamp(torch.sum(dr * dr),
+        denom = torch.clamp(member_sum(dr * dr, nd),
                             min=torch.finfo(dA.dtype).tiny)
-        theta = torch.clamp(torch.sum(dA * dr) / denom, -10.0, 10.0)
+        theta = torch.clamp(member_sum(dA * dr, nd) / denom, -10.0, 10.0)
+        theta = member_view(theta, A_new)
         A_ind_u = (1.0 - theta) * A_new + theta * (x_prev + velocity)
     return A_ind_u, dA, A_ind, dA
 
 
-def screening_error(cfg: StepConfig, dA, A_ind, app_scale):
+def vector_scale(A: torch.Tensor, nd: int) -> torch.Tensor:
+    """The largest ``|A|`` of a potential whose one-member rank is
+    ``nd`` (x/y pair last): 0-d for a single run or a potential all
+    members share, ``(B,)`` per member for a batch."""
+    return plane_max(torch.sqrt(torch.sum(A * A, dim=-1)), nd - 1)
+
+
+def screening_error(cfg: StepConfig, dA, A_ind, app_scale, nd: int):
     """The fixed point's error after an update: ``max |dA| / max |A|``
     with the denominator floored at 1e-2 of the applied potential's
-    largest ``|A|`` (the global norm), or the reference's largest per-edge
-    ratio ``|dA_e| / |A_e|``."""
+    largest ``|A|`` (``app_scale``; the global norm), or the reference's
+    largest per-edge ratio ``|dA_e| / |A_e|``. ``nd`` as in
+    :func:`induced_potential_update`: a batch's error is per member."""
     dA_norm = torch.sqrt(torch.sum(dA * dA, dim=-1))
     A_norm = torch.sqrt(torch.sum(A_ind * A_ind, dim=-1))
     if cfg.screening_global_error_norm:
-        denom = torch.maximum(torch.max(A_norm),
+        denom = torch.maximum(plane_max(A_norm, nd - 1),
                               torch.clamp(0.01 * app_scale, min=1e-20))
-        return torch.max(dA_norm) / denom
-    return torch.max(dA_norm / torch.clamp(A_norm, min=1e-20))
+        return plane_max(dA_norm, nd - 1) / denom
+    return plane_max(dA_norm / torch.clamp(A_norm, min=1e-20), nd - 1)
+
+
+def screening_fixed_point(cfg: StepConfig, s_body, carry, err, done):
+    """The robust program's screening fixed point (both backends): the
+    JAX package's ``while_loop``, vmapped for a batch.
+    ``s_body(s, carry) -> (carry, fail, err)`` runs iteration ``s`` for
+    every member, and a member takes its results while it is active: not
+    ``done``, its error at or above the tolerance (``err`` is the error
+    before the first iteration) and within ``max_iterations_per_step``.
+    An inactive member keeps its carry, error and iteration count, and its
+    ``fail`` takes an iteration's only while it is active; the members
+    active in iteration ``s`` have all run ``s`` iterations before it. One
+    host read of ``any(active)`` per iteration for the batch (of the 0-d
+    flag for a single run), so a finished (ghost) step runs none. Returns
+    ``(carry, err, fail, iterations)``."""
+    active = torch.logical_not(done)
+    fail = torch.zeros_like(done)
+    iterations = torch.zeros(done.shape, dtype=torch.int32,
+                             device=done.device)
+    s = 0
+    while bool(active if active.dim() == 0 else torch.any(active)):
+        carry_u, fail_i, err_u = s_body(s, carry)
+        carry = tuple(torch.where(member_view(active, n), n, o)
+                      for o, n in zip(carry, carry_u))
+        err = torch.where(active, err_u, err)
+        fail = torch.logical_or(fail, torch.logical_and(active, fail_i))
+        iterations = iterations + active.to(torch.int32)
+        s += 1
+        active = torch.logical_and(active, torch.logical_and(
+            err >= cfg.screening_tolerance,
+            iterations <= cfg.max_iterations_per_step))
+    return carry, err, fail, iterations
 
 
 def traced_per_member(fn, time: torch.Tensor) -> torch.Tensor:
@@ -403,11 +463,9 @@ def make_step_fn(cfg: StepConfig):
         n_sites = op.areas.shape[0]
         rdtype = state.mu.dtype
         time = state.time
-        if time.dim() and (cfg.include_screening
-                           or cfg.mu_boundary_fn is not None):
+        if time.dim() and cfg.mu_boundary_fn is not None:
             raise NotImplementedError(
-                "member-batched chunks run unscreened, without a traced"
-                " Neumann term")
+                "member-batched chunks run without a traced Neumann term")
         # --- time-dependent inputs (traced path) ---
         if cfg.A_fn is not None:
             A_applied = traced_per_member(cfg.A_fn, time).to(rdtype)
@@ -447,42 +505,40 @@ def make_step_fn(cfg: StepConfig):
                     cg_res)
 
         if cfg.include_screening:
-            tol = cfg.screening_tolerance
-            app_scale = torch.max(torch.sqrt(
-                torch.sum(A_applied * A_applied, dim=-1)))
-            A_ind, x_prev = state.A_induced, state.A_induced
-            velocity = torch.zeros_like(state.A_induced)
-            psi_n, mu_n, dt_used = state.psi, state.mu, dt0
-            zeros_e = torch.zeros(op.edges.shape[0], dtype=rdtype,
-                                  device=state.mu.device)
-            big = torch.full((), 1e30, dtype=rdtype, device=state.mu.device)
-            sq_n, J_s, J_n, err, cg_res = old_sq, zeros_e, zeros_e, big, big
-            cg_iters = aux["zero_i32"]
-            fail = torch.zeros_like(state.done)
-            s = 0
-            # The JAX while_loop, with one host read of the error per
-            # iteration.
-            while s <= cfg.max_iterations_per_step:
-                (psi_n, sq_n, mu_n, J_s, J_n, dt_used, fail_i, cg_iters,
-                 cg_res) = tdgl_update(psi_n, mu_n, A_ind, dt_used,
-                                       fixed_iters=cfg.screening_cg_iters)
-                fail = torch.logical_or(fail, fail_i)
+            app_scale = vector_scale(A_applied, 2)
+
+            def s_body(s, carry):
+                """One fixed-point iteration from ``carry = (dt, A_ind,
+                velocity, x_prev, psi, mu, ...)``; the psi update starts
+                from the iterate with the step's ``|psi|^2``."""
+                dt, A_ind, velocity, x_prev, psi_n, mu_n = carry[:6]
+                (psi_u, sq_u, mu_u, J_s_u, J_n_u, dt_u, fail_i, cg_iters_u,
+                 cg_res_u) = tdgl_update(psi_n, mu_n, A_ind, dt,
+                                         fixed_iters=cfg.screening_cg_iters)
                 J_site = gtdgl.edge_quantity_to_sites(
-                    op, J_s + J_n, n_sites, aux["unit_dirs"])
+                    op, J_s_u + J_n_u, n_sites, aux["unit_dirs"])
                 Jw = J_site * aux["screen_w"]
                 A_new = induced_vector_potential(aux["edge_centers"],
                                                  aux["sites"], Jw)
-                A_ind, velocity, x_prev, dA = induced_potential_update(
-                    cfg, s, A_ind, A_new, velocity, x_prev)
-                err = screening_error(cfg, dA, A_ind, app_scale)
-                s += 1
-                if not bool(err >= tol):
-                    break
-            fail = torch.logical_or(fail, err >= tol)
+                A_ind_u, velocity_u, x_prev_u, dA = induced_potential_update(
+                    cfg, s, A_ind, A_new, velocity, x_prev, 2)
+                err_u = screening_error(cfg, dA, A_ind_u, app_scale, 2)
+                return ((dt_u, A_ind_u, velocity_u, x_prev_u, psi_u, mu_u,
+                         sq_u, J_s_u, J_n_u, cg_iters_u, cg_res_u), fail_i,
+                        err_u)
+
+            zeros_e = torch.zeros(op.edges.shape[0], dtype=rdtype,
+                                  device=state.mu.device)
+            big = torch.full((), 1e30, dtype=rdtype, device=state.mu.device)
+            carry = (dt0, state.A_induced, torch.zeros_like(state.A_induced),
+                     state.A_induced, state.psi, state.mu, old_sq, zeros_e,
+                     zeros_e, aux["zero_i32"], big)
+            carry, err, fail, screening_iters = screening_fixed_point(
+                cfg, s_body, carry, big, state.done)
+            (dt_used, A_induced, _, _, psi_n, mu_n, sq_n, J_s, J_n, cg_iters,
+             cg_res) = carry
+            fail = torch.logical_or(fail, err >= cfg.screening_tolerance)
             fail = torch.logical_or(fail, cg_res > residual_allowed(rdtype))
-            A_induced = A_ind
-            screening_iters = torch.full((), s, dtype=torch.int32,
-                                         device=state.mu.device)
         else:
             guess = (2.0 * state.mu - state.mu_prev
                      if cfg.poisson_predictor else None)

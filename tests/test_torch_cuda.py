@@ -712,3 +712,83 @@ def test_sweep_on_card_matches_cpu(cuda_device, mesh_device):
         a, b = getattr(gpu, name), getattr(cpu, name)
         assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max(), name
     assert np.abs(gpu.dynamics_dt - cpu.dynamics_dt).max() <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("form", ["raw", "factored"])
+def test_batched_screened_forms_match_plain_per_member(cuda_device,
+                                                       mesh_device, dtype,
+                                                       form):
+    """The two kernel forms a screened batch launches, at 3 members with
+    per-member links: the RHS kernel's J_s-writing form (J_s ``(B, 3,
+    rows, cols)``) and the psi kernel with a per-member ``|psi|^2`` plane
+    ``(B, rows, cols)``; one launch each, every member equal to the plain
+    version on its own inputs."""
+    B = 3
+    solver = _solver(mesh_device, cuda_device, dtype)
+    state = solver._initial_state()
+    scales = torch.tensor([0.5, 1.0, 2.0], dtype=solver.torch_dtype,
+                          device=cuda_device)
+    A = state.A_applied[None] * scales[:, None, None, None, None]
+    U = _links(solver, state._replace(A_applied=A))[form]
+    x = _member_inputs(solver, B, seed=7)
+    eps, dA = _inputs(solver)["eps"], _inputs(solver)["dA"]
+    # Steps short enough that |psi| stays near 1 on these random inputs
+    # (where the float32 pin of 3e-5 absolute was set).
+    dt = torch.tensor([1e-3, 3e-4, 2e-3], dtype=solver.torch_dtype,
+                      device=cuda_device)
+    sq = (x["pr"] ** 2 + x["pi"] ** 2) * torch.tensor(
+        [0.9, 1.0, 1.1], dtype=solver.torch_dtype,
+        device=cuda_device)[:, None, None]
+    g, u = solver.cfg.gamma, solver.cfg.u
+    ops = step_kernels.StepOperands(solver.sten, U, dA, x["neumann"])
+    before = [fn.launches for fn in step_kernels.KERNELS]
+    got = ops.psi_update(g, u, x["pr"], x["pi"], x["mu"], eps, dt, sq)
+    rhs, J_s = ops.poisson_rhs(x["pr"], x["pi"], with_supercurrent=True)
+    assert [fn.launches - b for fn, b in
+            zip(step_kernels.KERNELS, before)] == [1, 1]
+    assert J_s.shape == (B, 3) + tuple(solver.maps.shape)
+    tol = 3e-5 if dtype == "float32" else 1e-12
+    for b in range(B):
+        U_b = type(U)(*(f[b] for f in U))
+        ref = step_kernels.plain_psi_update(g, u, solver.sten, U_b,
+                                            x["pr"][b], x["pi"][b],
+                                            x["mu"][b], eps, dt[b], sq[b])
+        for a, r in zip(got[:3], ref[:3]):
+            scale = 1.0 if dtype == "float32" else max(
+                r.abs().max().item(), 1.0)
+            assert (a[b] - r).abs().max().item() < tol * scale
+        assert bool(got[3][b]) == bool(ref[3])
+        rhs_ref, J_ref = step_kernels.plain_poisson_rhs(
+            solver.sten, U_b, x["pr"][b], x["pi"][b], dA, x["neumann"][b],
+            with_supercurrent=True)
+        for a, r in ((rhs[b], rhs_ref), (J_s[b], J_ref)):
+            scale = max(r.abs().max().item(), 1.0)
+            assert (a - r).abs().max().item() < tol * scale
+
+
+def test_screened_sweep_on_card_matches_cpu(cuda_device, mesh_device):
+    """A float64 3-member screened field sweep through ``solve_sweep`` on
+    the card (the J_s and ``abs_sq`` forms with per-member links, once per
+    fixed-point iteration for the batch) against the same sweep on the
+    CPU over 21 steps of fixed dt: 1e-10, equal steps."""
+    from tdgl_tpu_torch.parallel import solve_sweep
+
+    options = ttdgl.SolverOptions(
+        solve_time=0.002, dt_init=1e-4, adaptive=False, save_every=20,
+        field_units="mT", current_units="uA", dtype="float64",
+        include_screening=True,
+        screening_tolerance=1e-4, screening_error_norm="global")
+    kwargs = dict(applied_vector_potential=0.5,
+                  terminal_currents=dict(source=3.0, drain=-3.0),
+                  field_scales=[0.5, 1.0, 2.0], output_dir=None)
+    step_kernels.reset_launch_counts()
+    gpu = solve_sweep(mesh_device, options, **kwargs)
+    launches = [fn.launches for fn in step_kernels.KERNELS]
+    cpu = solve_sweep(mesh_device, options, torch_device="cpu", **kwargs)
+    assert np.array_equal(gpu.steps, cpu.steps) and not gpu.failed.any()
+    assert launches[1] > int(gpu.steps.max()) and launches[0] >= launches[1]
+    for name in ("psi", "mu", "supercurrent", "normal_current"):
+        a, b = getattr(gpu, name), getattr(cpu, name)
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max(), name
+    assert np.abs(gpu.dynamics_dt - cpu.dynamics_dt).max() <= 1e-12

@@ -23,9 +23,10 @@
   50.
 * (d) A port member file read with h5py equals the JAX member file field
   by field, and each package's ``Solution`` loads the other's file.
-* (e) What the port does not run raises: ``mesh=``, screening, and
-  ``field_scales`` with a time-dependent applied potential (which the JAX
-  package runs unscaled for every member).
+* (e) What the port does not run raises: ``mesh=`` and ``field_scales``
+  with a time-dependent applied potential (which the JAX package runs
+  unscaled for every member). Screened sweeps run: see
+  ``tests/test_torch_screened_sweep.py``.
 """
 
 import h5py
@@ -300,8 +301,8 @@ def test_sweep_failed_member_surfaced():
 
 
 def test_sweep_validation_and_unported_paths():
-    """(c), (e) Exactly one of the scales; ``mesh=``, screening and a
-    time-dependent field under ``field_scales`` raise."""
+    """(c), (e) Exactly one of the scales; ``mesh=`` and a time-dependent
+    field under ``field_scales`` raise."""
     device = _box(ttdgl)
     options = ttdgl.SolverOptions(solve_time=1)
     with pytest.raises(ValueError):
@@ -312,10 +313,6 @@ def test_sweep_validation_and_unported_paths():
     with pytest.raises(ValueError, match="Queue 1 item 6"):
         tsweep.solve_sweep(device, options, field_scales=[1],
                            mesh=object(), torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="screened sweeps"):
-        tsweep.solve_sweep(
-            device, ttdgl.SolverOptions(solve_time=1, include_screening=True),
-            field_scales=[1], torch_device="cpu")
     ramp = (ttdgl.ConstantField(1.0, field_units="uT")
             * ttdgl.LinearRamp(tmin=0, tmax=1))
     with pytest.raises(ValueError, match="time-dependent"):
