@@ -35,13 +35,14 @@ the robust program. Phases (each prints its seconds):
    snapshots, checkpoints and the output file), its ``Solution`` read back
    with ``Solution.from_hdf5``; the difference from phase 6 is the
    Runner's cost;
-8. where a step's time goes, from phase 6's final state: wall time,
-   torch ops and device kernel time per step (``torch.profiler``), for
+8. where a step's time goes, from phase 6's final state: wall time
+   (median of 3 runs of 50 steps), torch ops and device kernel time per
+   step (``torch.profiler``), for
    the fast and the robust program, and the device records of one psi
    wrapper call (one kernel, no fill or compare);
 9. a traced ramp through ``solve()``: the applied field ramps as
    ``ConstantField(0.5) * LinearRamp`` and a ``jittable`` source current
-   from 0 to 20 uA over the first half of ``--ramp-time`` (about 600
+   from 0 to 20 uA over the first half of ``--ramp-time`` (about 300
    steps in chunks of 500, inputs evaluated on the card inside the
    chunk), its steps/s beside phase 7's, the fast step's ops and device
    time, and the mean probe voltage over the first and the last chunk;
@@ -49,8 +50,8 @@ the robust program. Phases (each prints its seconds):
    before every step (chunk size 1, about 50 steps);
 10. screening through ``solve()`` at ``bench.py``'s screened operating
     point (0.5 mT, tolerance 1e-3, the fft kernel, Anderson, the fast
-    program with site evaluation and failover; about 250 steps in chunks
-    of 200): steps/s, failovers, screening iterations, launches per step
+    program with site evaluation and failover; about 130 steps in chunks
+    of 100): steps/s, failovers, screening iterations, launches per step
     slot (exactly one of each kernel in every committed fast chunk), the
     fast and robust screened step's ops and device time, and the device ms
     of one induced-potential evaluation (exact and site-evaluated);
@@ -139,7 +140,24 @@ twice (bitwise equal).
     slot, no kernel launch) and one pairwise evaluation's device ms at 8
     members and at 1.
 
-Phases 6, 7, 9, 10, 12, 13 and 14 each reset the kernels' launch
+15. post-processing and visualization on the card's output: a
+    ``solve()`` of the structured film (phase 7's options and inputs,
+    ``--post-time`` of simulated time, about 300 steps, snapshots every
+    ``--post-chunk`` steps) while a separate process that imports only
+    ``tdgl_tpu_torch`` polls the run's ``.h5.tmp`` side file through
+    h5lite and ``visualization.io`` every 0.5 s (it must see at least two
+    distinct steps, a finite psi of every site and ``solution/device``;
+    the side file must be gone when ``solve()`` returns), with the
+    seconds per snapshot write and the in-place side-file share;
+    ``get_plot_data`` for every ``Quantity`` on the finished file equal
+    to the ``Solution``'s own arrays; ``convert_to_xdmf`` read back
+    through h5lite (one frame per snapshot); the wall seconds of eight
+    ``Solution`` post-processing methods at full width, with the current
+    through the centre line within 10% of the 20 uA bias; and, where
+    matplotlib is installed, one rendered snapshot (else one line saying
+    it is not).
+
+Phases 6, 7, 9, 10, 12, 13, 14 and 15 each reset the kernels' launch
 counters just before each of their runs and read them just after; each
 count must match the step slots that run executed (chunks times chunk
 size, robust re-runs included), or in phase 14 the fixed-point iterations
@@ -151,7 +169,8 @@ GPU); ``--chunk`` and ``--solve-time`` resize phases 6 and 7,
 ``--ell-screen-steps`` phase 11, ``--resume-time``/``--resume-chunk``
 phase 12, ``--sweep-steps``/``--sweep-chunk``/``--sweep-ell-steps`` phase
 13, ``--screen-sweep-steps``/``--screen-sweep-chunk``/
-``--screen-sweep-ell-steps`` phase 14.
+``--screen-sweep-ell-steps`` phase 14, ``--post-time``/``--post-chunk``
+phase 15.
 """
 
 import argparse
@@ -1230,7 +1249,7 @@ def run_ell_main_path(pkg, args, inputs):
     sk.reset_launch_counts()
     rec["breakdown"] = ell_breakdown(solver, state._replace(
         end_time=torch.full_like(state.time, 1e9),
-        done=torch.zeros_like(state.done)))
+        done=torch.zeros_like(state.done)), steps=50, prof_steps=10)
     rec["applies"] = time_ell_applies(solver, state, sleep_cycles_per_ms())
 
     # Screened: the same film, 0.5 mT, no current, the pairwise kernel.
@@ -2091,6 +2110,226 @@ def run_screened_sweep_path(pkg, args, solver, device, ell_device, ell_op,
                 pairwise_eval=pairwise, pairwise_ratio=ratio)
 
 
+# Phase 15's reader: a separate process that imports only tdgl_tpu_torch
+# (and numpy), polls the solve's side file through h5lite and
+# visualization.io every 0.5 s, and exits non-zero unless it saw at least
+# two distinct steps, a finite psi of the film's sites and the device.
+SIDE_FILE_READER = r"""
+import json, os, sys, time
+import numpy as np
+from tdgl_tpu_torch.utils import h5lite
+from tdgl_tpu_torch.visualization import Quantity, io
+
+path, n_sites, limit = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
+print("ready", flush=True)
+steps, reads, failed, psi_ok, device_ok, mesh = [], 0, 0, False, False, None
+seen, t_end = False, time.time() + limit
+while time.time() < t_end:
+    if not os.path.exists(path):
+        if seen:
+            break
+        time.sleep(0.1)
+        continue
+    seen = True
+    try:
+        with h5lite.File(path, "r") as f:
+            device_ok = device_ok or "solution/device" in f
+            if mesh is None:
+                mesh = io.load_mesh(f)
+            grp = f["data/-1"]
+            if "psi" in grp:
+                psi = np.asarray(grp["psi"])
+                mag = io.get_plot_data(f, mesh, Quantity.ORDER_PARAMETER,
+                                       -1)[0]
+                psi_ok = psi_ok or (psi.shape == (n_sites,)
+                                    and bool(np.isfinite(psi).all())
+                                    and mag.shape == (n_sites,))
+            step = int(np.asarray(grp["step"])[0])
+        reads += 1
+        if step not in steps:
+            steps.append(step)
+    except (KeyError, OSError, ValueError):
+        failed += 1
+    time.sleep(0.5)
+ok = len(steps) >= 2 and psi_ok and device_ok
+print(json.dumps(dict(steps=steps, reads=reads, failed_reads=failed,
+                      psi_ok=psi_ok, device_ok=device_ok, ok=ok)))
+sys.exit(0 if ok else 1)
+"""
+
+
+def run_postprocessing_path(pkg, args, device, options, inputs, tmp):
+    """Phase 15: a ``solve()`` with a reader process polling its
+    ``.h5.tmp`` side file, then the visualization and post-processing
+    functions on its full-width output. Returns the phase's record."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from tdgl_tpu_torch.ops import step_kernels as sk
+    from tdgl_tpu_torch.solution.data import get_edge_quantity_data
+    from tdgl_tpu_torch.solver.runner import DataHandler
+    from tdgl_tpu_torch.utils import h5lite
+    from tdgl_tpu_torch.visualization import (Quantity, convert_to_xdmf,
+                                              get_plot_data)
+
+    rec = {}
+    path = os.path.join(tmp, "post.h5")
+    n_sites = len(device.mesh.sites)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    reader = subprocess.Popen(
+        [sys.executable, "-c", SIDE_FILE_READER, path + ".tmp",
+         str(n_sites), "600"], env=env, cwd=tmp, stdout=subprocess.PIPE,
+        text=True)
+    assert reader.stdout.readline().strip() == "ready"
+    rec["reader_start_s"] = time.perf_counter() - t0
+
+    writes, side_writes = [], []
+    restores = [timed_calls(DataHandler, ("save_time_step",), writes),
+                timed_calls(h5lite.Dataset, ("__setitem__",), side_writes)]
+    post_opts = dict(options, solve_time=args.post_time,
+                     save_every=args.post_chunk)
+    try:
+        with ChunkLog() as post_log:
+            torch.cuda.synchronize()
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            solution = pkg.solve(device, pkg.SolverOptions(
+                output_file=path, **post_opts), torch_device="cuda",
+                **inputs)
+            torch.cuda.synchronize()
+            solve_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in sk.KERNELS}
+    finally:
+        for restore in restores:
+            restore()
+    side_gone = not os.path.exists(path + ".tmp")
+    out, _ = reader.communicate(timeout=120)
+    seen = json.loads(out.strip().splitlines()[-1])
+    steps = int(solution.tdgl_data.state["step"])
+    lo, hi = solution.data_range
+    snapshots = hi - lo + 1
+    rec.update(solve_steps=steps, solve_s=solve_s, snapshots=snapshots,
+               slots=post_log.slots, launches=launches, reader=seen,
+               reader_rc=reader.returncode,
+               write_s_per_snapshot=sum(writes) / len(writes),
+               side_inplace_s_per_snapshot=sum(side_writes) / len(writes))
+    log(f"  solve(): {steps} steps, {snapshots} snapshots, {solve_s:.2f} s"
+        f" = {steps / solve_s:.2f} steps/s, {post_log.slots} step slots,"
+        f" launches {launches}; snapshot writes (output and side file)"
+        f" {rec['write_s_per_snapshot']:.4f} s each, of which in-place"
+        f" side-file writes {rec['side_inplace_s_per_snapshot']:.4f} s;"
+        f" side file removed: {side_gone}; reader (started in"
+        f" {rec['reader_start_s']:.2f} s, rc {reader.returncode}): {seen}")
+    assert reader.returncode == 0 and seen["ok"], seen
+    assert side_gone
+    assert launches["fused_poisson_rhs"] == post_log.slots
+    assert launches["fused_psi_update"] >= post_log.slots
+
+    # Plot data against the Solution's own arrays, at the last frame.
+    mesh = solution.device.mesh
+    data = solution.tdgl_data
+    expected = {
+        Quantity.ORDER_PARAMETER: np.abs(data.psi),
+        Quantity.PHASE: np.angle(data.psi) / np.pi,
+        Quantity.SCALAR_POTENTIAL: data.mu - np.nanmin(data.mu),
+        Quantity.SUPERCURRENT: get_edge_quantity_data(data.supercurrent,
+                                                      mesh)[0],
+        Quantity.NORMAL_CURRENT: get_edge_quantity_data(data.normal_current,
+                                                        mesh)[0],
+    }
+    t0 = time.perf_counter()
+    with h5lite.File(solution.path, "r") as f:
+        for quantity in Quantity:
+            value, directions, limits = get_plot_data(f, mesh, quantity, hi)
+            assert value.shape == (n_sites,), quantity
+            assert np.isfinite(value).all() and len(limits) == 2, quantity
+            if quantity in expected:
+                assert np.array_equal(value, expected[quantity]), quantity
+    rec["plot_data_s"] = time.perf_counter() - t0
+
+    # XDMF: the heavy file read back through h5lite.
+    t0 = time.perf_counter()
+    xdmf = convert_to_xdmf(solution.path)
+    rec["xdmf_s"] = time.perf_counter() - t0
+    with h5lite.File(xdmf + ".h5", "r") as f:
+        frames = [k for k in f if k.startswith("frame_")]
+        assert np.array_equal(np.asarray(f[f"frame_{hi}/order_parameter"]),
+                              np.abs(data.psi))
+    rec["xdmf_frames"] = len(frames)
+    rec["xdmf_bytes"] = os.path.getsize(xdmf + ".h5")
+    assert len(frames) == snapshots, (len(frames), snapshots)
+    log(f"  plot data for {len(Quantity)} quantities"
+        f" {rec['plot_data_s']:.2f} s (equal to the Solution's arrays);"
+        f" XDMF {rec['xdmf_s']:.2f} s, {len(frames)} frames,"
+        f" {rec['xdmf_bytes']} bytes")
+
+    # Post-processing on the full-width Solution, each call timed once.
+    side = float(np.sqrt(50_000 * 0.238))
+    ys = np.linspace(-side / 2, side / 2, 2001)
+    centre = np.stack([np.zeros_like(ys), ys], axis=1)
+    above = np.array([[0.0, 0.0], [side / 4, 0.0], [0.0, side / 4],
+                      [-side / 4, -side / 4]])
+    rng = np.random.default_rng(15)
+    inside = rng.uniform(-side / 3, side / 3, size=(1000, 2))
+    calls = {
+        "field_at_position": lambda: solution.field_at_position(
+            above, zs=1.0, with_units=False),
+        "vector_potential_at_position":
+            lambda: solution.vector_potential_at_position(
+                above, zs=1.0, with_units=False),
+        "boundary_phases": lambda: solution.boundary_phases(),
+        "current_through_path": lambda: solution.current_through_path(
+            centre, with_units=False),
+        "vorticity": lambda: solution.vorticity.magnitude,
+        "grid_current_density": lambda: solution.grid_current_density()[2],
+        "interp_order_parameter":
+            lambda: solution.interp_order_parameter(inside),
+        "interp_current_density":
+            lambda: solution.interp_current_density(inside),
+    }
+    values, post_s = {}, {}
+    for name, call in calls.items():
+        t0 = time.perf_counter()
+        values[name] = call()
+        post_s[name] = time.perf_counter() - t0
+    rec["post_s"] = post_s
+    current = values["current_through_path"]
+    rec["current_uA"] = current
+    log("  post-processing (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in post_s.items())
+        + f"; current through x = 0 {current:.6g} uA (applied 20 uA)")
+    assert abs(current - 20.0) <= 0.1 * 20.0, current
+    for name, value in values.items():
+        if name != "boundary_phases":
+            arr = np.asarray(value)
+            assert np.isfinite(arr[~np.isnan(arr)]).all() and arr.size, name
+    assert np.isfinite(values["interp_order_parameter"]).any()
+
+    # One snapshot rendered where matplotlib is installed.
+    if importlib.util.find_spec("matplotlib") is None:
+        rec["plot"] = "matplotlib not installed"
+        log("  matplotlib is not installed here: no snapshot rendered")
+    else:
+        import matplotlib.pyplot as plt
+
+        from tdgl_tpu_torch.visualization import (generate_snapshots,
+                                                  non_gui_backend)
+
+        t0 = time.perf_counter()
+        with non_gui_backend():
+            (fig, _), = generate_snapshots(
+                solution.path, times=[float(data.state["time"])])
+            fig.savefig(os.path.join(tmp, "snapshot.png"))
+            plt.close(fig)
+        rec["plot"] = time.perf_counter() - t0
+        log(f"  one snapshot rendered in {rec['plot']:.2f} s")
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--chunk", type=int, default=500,
@@ -2098,16 +2337,20 @@ def main() -> int:
     parser.add_argument("--solve-time", type=float, default=9.8,
                         help="simulated time of phases 6-7 (the default"
                         " takes about 1,000 steps)")
-    # Phases 9 and 10 are cut to this depth to fit phase 14 in the limit.
-    parser.add_argument("--ramp-time", type=float, default=6.0,
+    # Phases 8-10, 12 and 14 (and the profiled windows of phases 8-11)
+    # are cut to this depth so that the script, with phase 15, stays well
+    # inside its limit on a slow host: at about twice these depths it took
+    # ~1,185 s on an H100 machine whose host ran the static bare loop at
+    # 17 steps/s (30 on a fast one).
+    parser.add_argument("--ramp-time", type=float, default=3.0,
                         help="simulated time of phase 9's traced ramp (the"
                         " inputs ramp over its first half)")
     parser.add_argument("--ramp-chunk", type=int, default=500,
                         help="steps per chunk of phase 9")
-    parser.add_argument("--screen-time", type=float, default=2.4,
+    parser.add_argument("--screen-time", type=float, default=1.2,
                         help="simulated time of phase 10's screened solve"
-                        " (the default takes about 250 steps)")
-    parser.add_argument("--screen-chunk", type=int, default=200,
+                        " (the default takes about 130 steps)")
+    parser.add_argument("--screen-chunk", type=int, default=100,
                         help="steps per chunk of phase 10")
     parser.add_argument("--ell-time", type=float, default=9.8,
                         help="simulated time of phase 11's unstructured"
@@ -2116,7 +2359,7 @@ def main() -> int:
                         help="steps per chunk of phase 11")
     parser.add_argument("--ell-screen-steps", type=int, default=10,
                         help="steps of phase 11's screened run")
-    parser.add_argument("--resume-time", type=float, default=4.8,
+    parser.add_argument("--resume-time", type=float, default=2.4,
                         help="simulated time of phase 12's uninterrupted"
                         " runs (the checkpoint is taken at half of it)")
     parser.add_argument("--resume-chunk", type=int, default=100,
@@ -2128,7 +2371,7 @@ def main() -> int:
                         help="steps per chunk of phase 13's sweeps")
     parser.add_argument("--sweep-ell-steps", type=int, default=100,
                         help="steps per member of phase 13's ELL sweep")
-    parser.add_argument("--screen-sweep-steps", type=int, default=50,
+    parser.add_argument("--screen-sweep-steps", type=int, default=20,
                         help="steps per member of phase 14's structured"
                         " screened sweeps")
     parser.add_argument("--screen-sweep-chunk", type=int, default=25,
@@ -2137,6 +2380,11 @@ def main() -> int:
     parser.add_argument("--screen-sweep-ell-steps", type=int, default=10,
                         help="steps per member (and per chunk) of phase"
                         " 14's ELL screened sweeps")
+    parser.add_argument("--post-time", type=float, default=3.0,
+                        help="simulated time of phase 15's solve() (about"
+                        " 300 steps)")
+    parser.add_argument("--post-chunk", type=int, default=50,
+                        help="steps per chunk and per snapshot of phase 15")
     args = parser.parse_args()
 
     import torch
@@ -2360,7 +2608,7 @@ def main() -> int:
     with Phase("where the time goes (from phase 6's final state)"):
         phase8 = time_breakdown(solver, state._replace(
             end_time=torch.full_like(state.time, 1e9),
-            done=torch.zeros_like(state.done)))
+            done=torch.zeros_like(state.done)), steps=50, prof_steps=10)
 
     with Phase("traced ramp through solve()"), \
             tempfile.TemporaryDirectory() as tmp:
@@ -2410,8 +2658,8 @@ def main() -> int:
         ramp_state = ramp_log.state._replace(
             end_time=torch.full_like(ramp_log.state.time, 1e9),
             done=torch.zeros_like(ramp_log.state.done))
-        ramp_breakdown = time_breakdown(ramp_solver, ramp_state,
-                                        programs=("fast",),
+        ramp_breakdown = time_breakdown(ramp_solver, ramp_state, steps=50,
+                                        prof_steps=10, programs=("fast",),
                                         psi_records=False)
 
         # The host path: a plain callable, evaluated before every step.
@@ -2498,8 +2746,8 @@ def main() -> int:
         scr_state = scr_log.state._replace(
             end_time=torch.full_like(scr_log.state.time, 1e9),
             done=torch.zeros_like(scr_log.state.done))
-        scr_breakdown = time_breakdown(scr_solver, scr_state, steps=20,
-                                       prof_steps=10, psi_records=False)
+        scr_breakdown = time_breakdown(scr_solver, scr_state, steps=10,
+                                       prof_steps=4, psi_records=False)
         # One induced-potential evaluation, exact per-class and site-
         # evaluated, on a seeded current.
         rng = np.random.default_rng(11)
@@ -2536,6 +2784,12 @@ def main() -> int:
     with Phase("screened sweeps (solve_sweep, include_screening)"):
         screened_sweep = run_screened_sweep_path(
             ttdgl, args, solver, device, ell_device, ell_op, options)
+
+    with Phase("post-processing and visualization (side file, plots,"
+               " XDMF)") as post_phase, tempfile.TemporaryDirectory() as tmp:
+        post = run_postprocessing_path(ttdgl, args, device, options, inputs,
+                                       tmp)
+    post["seconds"] = post_phase.seconds
 
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
@@ -2575,6 +2829,9 @@ def main() -> int:
     for key, run in screened_sweep["runs"].items():
         by_path[key] = run["launches"]
         slots_by_path[key] = run["slots"]
+    # Phase 15: the solve() beside the side-file reader.
+    by_path["post-processing solve()"] = post["launches"]
+    slots_by_path["post-processing solve()"] = post["slots"]
 
     def record(name, source, replaces):
         fac = timings[name]["factored"]
@@ -2625,7 +2882,8 @@ def main() -> int:
                               if k != "kernels"},
                     "screened_sweep": {k: v for k, v in
                                        screened_sweep.items()
-                                       if k != "kernels"}}))
+                                       if k != "kernels"},
+                    "post": post}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

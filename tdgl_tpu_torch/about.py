@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import platform
 import sys
-from typing import Dict
+from typing import Dict, Optional
 
 from .version import __version__
 
@@ -37,3 +37,19 @@ def version_dict() -> Dict[str, str]:
         versions["cuda_device"] = "none"
     return versions
 
+
+def version_table(version_info: Optional[Dict[str, str]] = None):
+    """An HTML table of version info (for notebooks): an IPython ``HTML``
+    object where IPython is installed, else the HTML string."""
+    if version_info is None:
+        version_info = version_dict()
+    rows = ["<table>", "<tr><th>Software</th><th>Version</th></tr>"]
+    for key, value in version_info.items():
+        rows.append(f"<tr><td>{key}</td><td>{value}</td></tr>")
+    rows.append("</table>")
+    html = "".join(rows)
+    try:
+        from IPython.display import HTML
+    except ImportError:
+        return html
+    return HTML(html)

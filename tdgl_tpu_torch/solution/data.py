@@ -3,8 +3,8 @@
 Port of :mod:`tdgl_tpu.solution.data` on :mod:`tdgl_tpu_torch.utils.h5lite`
 (no h5py, tqdm or matplotlib). API and HDF5-schema parity with the
 reference ``tdgl/solution/data.py`` (``TDGLData:68``, ``DynamicsData:146``,
-``get_current_through_paths:506``). Plots are not ported yet (ROADMAP
-Queue 1: visualization).
+``get_current_through_paths:506``). The plots import matplotlib when they
+are called.
 """
 
 from __future__ import annotations
@@ -17,13 +17,6 @@ import numpy as np
 from ..geometry import path_vectors
 from ..utils import h5lite
 from ..utils.h5lite import Group
-
-
-def not_ported_plot(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tdgl_tpu_torch yet (ROADMAP Queue 1:"
-        " visualization); load the output file with tdgl_tpu to plot it."
-    )
 
 
 def progress(iterable, desc: str, enabled: bool):
@@ -198,13 +191,56 @@ class DynamicsData:
         return DynamicsData(dt=(ts[1] - ts[0]) * np.ones_like(ts), mu=mu,
                             theta=theta)
 
-    def plot(self, *args, **kwargs):
-        """Plot the voltage and phase difference vs time (not ported)."""
-        raise not_ported_plot("DynamicsData.plot")
+    def plot(self, i: int = 0, j: int = 1, tmin: float = -np.inf,
+             tmax: float = np.inf, grid: bool = True,
+             mean_voltage: bool = True, labels: bool = True,
+             legend: bool = False):
+        """Plot the voltage and phase difference vs time."""
+        import matplotlib.pyplot as plt
 
-    def plot_dt(self, *args, **kwargs):
-        """Plot dt vs time and a histogram of dt (not ported)."""
-        raise not_ported_plot("DynamicsData.plot_dt")
+        fig, (ax, bx) = plt.subplots(2, 1, sharex=True)
+        ax.grid(grid)
+        bx.grid(grid)
+        ix = self.time_slice(tmin, tmax)
+        ts = self.time
+        ax.plot(ts[ix], self.voltage(i, j)[ix])
+        if mean_voltage:
+            ax.axhline(self.mean_voltage(i, j, tmin, tmax),
+                       label="Mean voltage", color="k", ls="--")
+        bx.plot(ts[ix], np.unwrap(self.phase_difference(i, j))[ix] / np.pi)
+        if labels:
+            ax.set_ylabel(f"Voltage\n$\\Delta\\mu_{{{i},{j}}}$ [$V_0$]")
+            bx.set_xlabel("Time, $t$ [$\\tau_0$]")
+            bx.set_ylabel(
+                f"Phase difference\n$\\Delta\\theta_{{{i},{j}}}/\\pi$")
+        if legend:
+            ax.legend(loc=0)
+        return fig, (ax, bx)
+
+    def plot_dt(self, tmin: float = -np.inf, tmax: float = np.inf,
+                grid: bool = True, labels: bool = True, **histogram_kwargs):
+        """Plot dt vs time and a histogram of dt."""
+        import matplotlib.pyplot as plt
+
+        fig, (ax, bx) = plt.subplots(
+            1, 2, gridspec_kw=dict(width_ratios=[2, 1])
+        )
+        ax.sharey(bx)
+        ax.grid(grid)
+        bx.grid(grid)
+        ix = self.time_slice(tmin, tmax)
+        ax.plot(self.time[ix], self.dt[ix])
+        histogram_kwargs.setdefault("bins", 101)
+        histogram_kwargs.setdefault("density", True)
+        histogram_kwargs["orientation"] = "horizontal"
+        bx.hist(self.dt[ix], **histogram_kwargs)
+        if labels:
+            ax.set_xlabel("Time, $t$ [$\\tau_0$]")
+            ax.set_ylabel("Time step, $\\Delta t$ [$\\tau_0$]")
+            bx.set_xlabel("Density" if histogram_kwargs.get("density")
+                          else "Counts per bin")
+        fig.tight_layout()
+        return fig, (ax, bx)
 
     @staticmethod
     def from_hdf5(h5file: Group,

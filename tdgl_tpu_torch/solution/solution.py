@@ -20,8 +20,8 @@ the same name, and a pickle that needs what this machine lacks (cloudpickle
 for a function stored by value, or a name the port does not have) leaves
 an attribute that raises on access, while the fields, the dynamics and the
 device load. Linear interpolation runs on the mesh without matplotlib
-(:mod:`.tri_interp`); cubic interpolation needs matplotlib. The plots are
-not ported yet (ROADMAP Queue 1: visualization).
+(:mod:`.tri_interp`); cubic interpolation and the ``plot_*`` methods
+(:mod:`.plot_solution`) need matplotlib, imported when they are called.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ from ..solver.options import SolverOptions
 from ..utils import h5lite, pickles
 from ..utils.units import Quantity, ureg
 from .data import (DynamicsData, TDGLData, get_data_range,
-                   get_edge_quantity_data, not_ported_plot)
+                   get_edge_quantity_data)
 from .tri_interp import LinearTriInterpolator
 
 
@@ -809,21 +809,31 @@ class Solution:
 
     # -- plotting aliases --------------------------------------------------------------
     def plot_currents(self, **kwargs):
-        """Alias of ``plot_currents`` (not ported)."""
-        raise not_ported_plot("Solution.plot_currents")
+        """Alias of :func:`tdgl_tpu_torch.plot_currents`."""
+        from .plot_solution import plot_currents
+
+        return plot_currents(self, **kwargs)
 
     def plot_order_parameter(self, **kwargs):
-        """Alias of ``plot_order_parameter`` (not ported)."""
-        raise not_ported_plot("Solution.plot_order_parameter")
+        """Alias of :func:`tdgl_tpu_torch.plot_order_parameter`."""
+        from .plot_solution import plot_order_parameter
+
+        return plot_order_parameter(self, **kwargs)
 
     def plot_field_at_positions(self, positions, **kwargs):
-        """Alias of ``plot_field_at_positions`` (not ported)."""
-        raise not_ported_plot("Solution.plot_field_at_positions")
+        """Alias of :func:`tdgl_tpu_torch.plot_field_at_positions`."""
+        from .plot_solution import plot_field_at_positions
+
+        return plot_field_at_positions(self, positions, **kwargs)
 
     def plot_vorticity(self, **kwargs):
-        """Alias of ``plot_vorticity`` (not ported)."""
-        raise not_ported_plot("Solution.plot_vorticity")
+        """Alias of :func:`tdgl_tpu_torch.plot_vorticity`."""
+        from .plot_solution import plot_vorticity
+
+        return plot_vorticity(self, **kwargs)
 
     def plot_scalar_potential(self, **kwargs):
-        """Alias of ``plot_scalar_potential`` (not ported)."""
-        raise not_ported_plot("Solution.plot_scalar_potential")
+        """Alias of :func:`tdgl_tpu_torch.plot_scalar_potential`."""
+        from .plot_solution import plot_scalar_potential
+
+        return plot_scalar_potential(self, **kwargs)

@@ -58,8 +58,10 @@ class SolverOptions:
         progress_interval: Steps between log-based progress reports
             (0 disables; a tqdm bar is shown instead where tqdm is
             installed, else progress is logged after every chunk).
-        monitor: Launch the live-monitor subprocess (not ported:
-            ``solve()`` raises ``NotImplementedError``).
+        monitor: Launch the live-monitor subprocess (``python -m
+            tdgl_tpu_torch.visualize ... monitor``; needs matplotlib:
+            ``solve()`` raises ``ImportError`` before the first step
+            where it is missing).
         monitor_update_interval: Monitor poll period in seconds.
         include_screening: Self-consistently include the induced vector
             potential.

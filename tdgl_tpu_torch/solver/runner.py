@@ -7,13 +7,21 @@ attrs (step/time/dt), full state arrays, and a ``running_state`` subgroup
 of per-step scalars, plus the ``checkpoint`` group of the full solver
 state. The file is written through :mod:`tdgl_tpu_torch.utils.h5lite`.
 
+Beside it, as in the JAX runner, the ``<file>.h5.tmp`` side file holds
+the latest snapshot under ``data/-1`` (with ``step``/``time``/``dt``
+datasets), the fixed arrays and ``solution/device``, for the live monitor
+(:func:`tdgl_tpu_torch.visualization.monitor_solution`), and is removed
+on close. The JAX package writes it with h5py's SWMR mode; h5lite has no
+SWMR, so every snapshot after the first overwrites the side file's
+datasets in place: after that snapshot's flush no header, superblock or
+data block moves, and a reader that opens the file anew at any time reads
+it whole (a ``psi`` may mix two snapshots, as under SWMR).
+
 The device advances up to ``save_every`` steps per ``chunk_fn`` call; the
 host reads from the device once per chunk: the chunk's stacked per-step
 outputs and its exported state (and, at a snapshot, the full state for the
-checkpoint). Differences from the JAX runner: no ``<file>.h5.tmp`` SWMR
-file is written (it only feeds the live monitor, which is not ported:
-ROADMAP Queue 1, visualization); progress goes through the logger, or a
-tqdm bar where tqdm is installed; ``profile_dir`` writes a
+checkpoint). Differences from the JAX runner: progress goes through the
+logger, or a tqdm bar where tqdm is installed; ``profile_dir`` writes a
 ``torch.profiler`` chrome trace.
 """
 
@@ -22,6 +30,8 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import subprocess
+import sys
 import tempfile
 import time as _time
 import traceback
@@ -47,7 +57,8 @@ def to_host(tensor) -> np.ndarray:
 
 
 class DataHandler:
-    """Context manager owning the output HDF5 file."""
+    """Context manager owning the output HDF5 file and its ``.tmp`` side
+    file."""
 
     def __init__(self, output_file: Optional[str],
                  logger: Optional[logging.Logger] = None):
@@ -57,6 +68,8 @@ class DataHandler:
         self._base_output_file = output_file
         self.output_file: Optional[h5lite.File] = None
         self.output_path: Optional[str] = None
+        self.tmp_file: Optional[h5lite.File] = None
+        self.tmp_path: Optional[str] = None
         self.time_step_group: Optional[h5lite.Group] = None
         self.mesh_group: Optional[h5lite.Group] = None
 
@@ -74,23 +87,36 @@ class DataHandler:
             tag = f"-{serial}" if serial is not None else ""
             file_name = f"{name}{tag}.{suffix}"
             path = os.path.join(directory, file_name)
+            tmp_path = path + ".tmp"
             try:
                 f = h5lite.File(path, "x")
             except FileExistsError:
+                serial = 1 if serial is None else serial + 1
+                continue
+            try:
+                tmp = h5lite.File(tmp_path, "x")
+            except FileExistsError:
+                # Another run's side file: take the next name for both.
+                f.close()
+                os.remove(path)
                 serial = 1 if serial is None else serial + 1
                 continue
             if serial is not None:
                 self.logger.warning(
                     f"Output file already exists; renamed to {file_name}."
                 )
-            return f, path
+            return f, path, tmp, tmp_path
 
     def __enter__(self) -> "DataHandler":
-        self.output_file, self.output_path = self._create_output_file(
-            self._base_output_file)
+        (self.output_file, self.output_path, self.tmp_file,
+         self.tmp_path) = self._create_output_file(self._base_output_file)
         self.time_step_group = self.output_file.create_group(
             "data", track_order=True
         )
+        grp = self.tmp_file.create_group("data/-1")
+        grp["step"] = np.array([0])
+        grp["time"] = np.array([0.0])
+        grp["dt"] = np.array([0.0])
         return self
 
     def __exit__(self, exc_type, exc_value, exc_tb) -> None:
@@ -105,6 +131,12 @@ class DataHandler:
     def close(self) -> None:
         if self.output_file is not None:
             self.output_file.close()
+        if self.tmp_file is not None:
+            self.tmp_file.close()
+            try:
+                os.remove(self.tmp_path)
+            except OSError:
+                pass
         if self.tempdir is not None:
             self.tempdir.cleanup()
 
@@ -114,9 +146,18 @@ class DataHandler:
         mesh.to_hdf5(self.mesh_group)
 
     def save_fixed_values(self, fixed_data: Dict[str, np.ndarray]) -> None:
-        """Save time-independent arrays at the file root."""
+        """Save time-independent arrays at the root of both files."""
         for key, value in fixed_data.items():
-            self.output_file[key] = np.asarray(value)
+            value = np.asarray(value)
+            self.output_file[key] = value
+            self.tmp_file[key] = value
+
+    def save_device(self, device) -> None:
+        """Write the device into the side file (``solution/device``, which
+        the monitor reads its mesh from) and flush it, so the monitor can
+        draw before the first snapshot."""
+        device.to_hdf5(self.tmp_file.create_group("solution/device"))
+        self.tmp_file.flush()
 
     def save_time_step(
         self,
@@ -130,8 +171,20 @@ class DataHandler:
         self.save_number += 1
         for key, value in state.items():
             group.attrs[key] = value
+        tmp_grp = self.tmp_file["data/-1"]
         for key, value in data.items():
-            group[key] = np.asarray(value)
+            value = np.asarray(value)
+            group[key] = value
+            if key in tmp_grp:
+                tmp_grp[key][:] = value
+            else:
+                tmp_grp[key] = value
+        # The arrays first, then the step: a reader that sees a new step
+        # finds this snapshot's arrays written.
+        self.tmp_file.flush()
+        for key in ("step", "time", "dt"):
+            tmp_grp[key][:] = np.array([state[key]])
+        self.tmp_file.flush()
         if running_state is not None:
             rs_grp = group.create_group("running_state")
             for key, value in running_state.items():
@@ -212,6 +265,10 @@ class Runner:
             sets the chunk size to 1 then).
         resume: The initial state is a checkpoint's: skip thermalization
             (``skip_time`` is ignored with a warning).
+        monitor: After the step-0 snapshot, start ``python -m
+            tdgl_tpu_torch.visualize --input <output> monitor`` in its own
+            session, polling the side file every
+            ``monitor_update_interval`` seconds.
     """
 
     def __init__(
@@ -229,6 +286,8 @@ class Runner:
         logger: Optional[logging.Logger] = None,
         host_update_fn: Optional[Callable] = None,
         resume: bool = False,
+        monitor: bool = False,
+        monitor_update_interval: float = 1.0,
     ):
         self.chunk_fn = chunk_fn
         self.state = initial_state
@@ -243,6 +302,8 @@ class Runner:
         self.checkpoint_meta = checkpoint_meta
         self.host_update_fn = host_update_fn
         self.resume = resume
+        self.monitor = monitor
+        self.monitor_update_interval = monitor_update_interval
         self.logger = logger or logging.getLogger(__name__)
         self.running_state = RunningState(
             running_names_and_sizes, options.save_every
@@ -325,6 +386,16 @@ class Runner:
                 arrays[name] = value
         self.data_handler.save_checkpoint(arrays, attrs)
 
+    def _start_monitor(self) -> None:
+        if not self.monitor:
+            return
+        cmd = [
+            sys.executable, "-m", "tdgl_tpu_torch.visualize",
+            "--input", self.data_handler.output_path,
+            "monitor", "--interval", str(self.monitor_update_interval),
+        ]
+        subprocess.Popen(cmd, start_new_session=True)
+
     def _progress_bar(self, name: str, end_time: float):
         """A tqdm bar where tqdm is installed and log-based progress is
         off; else None (progress goes through the logger)."""
@@ -351,6 +422,7 @@ class Runner:
         with pbar if pbar is not None else contextlib.nullcontext():
             if save:
                 self._save_snapshot(None)  # step-0 snapshot, no running state
+                self._start_monitor()
             prev_time = 0.0
             while True:
                 try:

@@ -32,8 +32,11 @@ Time-dependent inputs run on one of two paths, as in the JAX package:
 A run continues exactly from the ``checkpoint`` group of an earlier output
 file (``solve(resume_from=...)``, also one that ``tdgl_tpu`` wrote), or
 starts from the fields of an earlier :class:`~tdgl_tpu_torch.Solution`
-(``seed_solution``). The live monitor is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1, visualization).
+(``seed_solution``). Beside the output file ``solve()`` writes the
+``<file>.h5.tmp`` side file that ``SolverOptions.monitor`` (``python -m
+tdgl_tpu_torch.visualize --input <file> monitor``) polls; the monitor
+needs matplotlib, and ``solve()`` raises ``ImportError`` before the first
+step where it is missing.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import hashlib
 import inspect
 import logging
 from datetime import datetime
-from typing import Callable, Dict, Optional, Sequence, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,11 +69,20 @@ from .step import SolverState, StepConfig, make_chunk_fn
 logger = logging.getLogger("solver")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tdgl_tpu_torch yet (ROADMAP Queue 1:"
-        f" {item}); use tdgl_tpu for it."
-    )
+class SolverResult(NamedTuple):
+    """The per-step quantities produced by the solver (informational: the
+    chunked runtime carries them in its state instead of returning them
+    per step). Mirrors the reference ``tdgl/solver/solver.py:63-86`` for
+    API compatibility."""
+
+    dt: float
+    psi: "np.ndarray"
+    mu: "np.ndarray"
+    supercurrent: "np.ndarray"
+    normal_current: "np.ndarray"
+    A_induced: "np.ndarray"
+    A_applied: "np.ndarray" = None
+    epsilon: "np.ndarray" = None
 
 
 class UniformEpsilon:
@@ -1219,8 +1231,15 @@ class TDGLSolver:
 
         options = self.options
         if options.monitor:
-            raise _not_ported("The live monitor (SolverOptions.monitor)",
-                              "visualization")
+            # The monitor runs in a child process; fail here, not unseen
+            # there, where matplotlib is missing.
+            try:
+                import matplotlib  # noqa: F401
+            except ImportError as exc:
+                raise ImportError(
+                    "SolverOptions.monitor=True needs matplotlib, which is"
+                    " not installed."
+                ) from exc
         start_time = datetime.now()
         options.validate()
         check_picklable(applied_vector_potential=self.applied_vector_potential,
@@ -1253,6 +1272,7 @@ class TDGLSolver:
                          logger=logger) as data_handler:
             data_handler.save_mesh(self.mesh)
             data_handler.save_fixed_values(fixed)
+            data_handler.save_device(self.device)
             logger.info(
                 "Simulation started at %s on %s (chunk size %d).",
                 start_time, self.torch_device, self.chunk_size,
@@ -1268,6 +1288,8 @@ class TDGLSolver:
                 initial_export=self._initial_export,
                 host_update_fn=(self._host_update if self.host_dynamic
                                 else None),
+                monitor=options.monitor,
+                monitor_update_interval=options.monitor_update_interval,
                 checkpoint_meta={
                     "backend": "grid" if self.structured else "ell",
                     "mesh_fingerprint": self._mesh_fingerprint(),

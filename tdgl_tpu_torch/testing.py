@@ -1,13 +1,43 @@
-"""Fixtures for checking the step kernels; not used by the solver.
+"""Self-test entry point and fixtures for checking the step kernels.
 
-Imported by the tests and by ``chip_smoke.py``.
+:func:`run` (reference ``tdgl/testing.py:10``) runs the port's own test
+files so an installation can verify itself. :func:`periodic_stencil` is
+a fixture of the kernel checks, imported by the tests and by
+``chip_smoke.py``; the solver does not use it.
 """
 
 from __future__ import annotations
 
+import glob
+import importlib.util
+import os
+import subprocess
+import sys
+
 import numpy as np
 
 from .device.hexmesh import EDGE_OFFSETS
+
+
+def run() -> int:
+    """Run the port's test files (``tests/test_torch_*.py``) with pytest;
+    returns pytest's exit code.
+
+    Where jax is not importable (as on a GPU machine without the JAX
+    package), ``--noconftest`` skips ``tests/conftest.py``, which imports
+    jax; the files that compare with the JAX package then fail to import,
+    and the ones that need only the port run.
+    """
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = sorted(glob.glob(os.path.join(repo_root, "tests",
+                                          "test_torch_*.py")))
+    if not files:
+        print("Test directory not found; install from source to run tests.")
+        return 1
+    args = [sys.executable, "-m", "pytest", *files, "-v"]
+    if importlib.util.find_spec("jax") is None:
+        args.append("--noconftest")
+    return subprocess.call(args, cwd=repo_root)
 
 
 def periodic_stencil(sten, seed: int):

@@ -23,15 +23,21 @@ What it writes (HDF5 file format specification 3.0):
   as h5py's int8 enum (FALSE=0, TRUE=1), ``str`` as variable-length UTF-8
   strings in a global heap, and ``np.void`` as opaque data.
 
-Write order: array data is written once, when its dataset is created,
-and never moves. Object headers and global heap collections are written
+Write order: array data is written when its dataset is created, and
+never moves; :meth:`Dataset.__setitem__` overwrites it whole, in place. Object headers and global heap collections are written
 at :meth:`File.flush`/:meth:`File.close`, each changed header to a new
 place (its ancestors follow, since their links change), and the
 superblock last. So the file as last flushed stays readable if the
 process dies. Space freed by a deletion (a replaced group's headers and
 data) is reused after the next flush, when no flushed header refers to it
 any more: a group that is replaced at every flush with arrays of the same
-sizes costs two copies of its size in the file, not one per flush.
+sizes costs two copies of its size in the file, not one per flush. A file
+whose datasets are only overwritten in place after a flush keeps its
+headers and superblock where they are, and reuses no block, so a reader
+that opens it anew at any time finds every header it follows intact (a
+dataset being overwritten may read half old and half new: data blocks
+carry no checksum). The solver's ``<file>.h5.tmp`` side file, which the
+live monitor polls, is written so.
 
 What it reads: every file it writes, and the files h5py writes in HDF5's
 default (earliest) format, as ``tdgl_tpu`` writes its output: superblock
@@ -516,19 +522,21 @@ class AttributeManager:
         return name in self._node.attrs
 
     def __iter__(self) -> Iterator[str]:
-        return iter(list(self._node.attrs))
+        return iter(self.keys())
 
     def __len__(self) -> int:
         return len(self._node.attrs)
 
     def keys(self):
-        return list(self._node.attrs)
+        # h5py's order for attributes whose creation order is not tracked
+        # (none is, in either writer's files): by name.
+        return sorted(self._node.attrs, key=lambda s: s.encode("utf-8"))
 
     def values(self):
-        return [self[k] for k in self._node.attrs]
+        return [self[k] for k in self.keys()]
 
     def items(self):
-        return [(k, self[k]) for k in self._node.attrs]
+        return [(k, self[k]) for k in self.keys()]
 
     def get(self, name: str, default=None):
         return self[name] if name in self._node.attrs else default
@@ -563,6 +571,31 @@ class Dataset:
 
     def __getitem__(self, key):
         return self._node.file._read_dataset(self._node)[key]
+
+    def __setitem__(self, key, value) -> None:
+        """Overwrite the whole array in place (``ds[:] = value``, ``ds[...]
+        = value`` or ``ds[()] = value``): ``value`` is cast to the
+        dataset's dtype, must have its shape, and is written at the data's
+        fixed address, so no header changes."""
+        node = self._node
+        f = node.file
+        f._check_writable()
+        whole = (key is Ellipsis or (isinstance(key, tuple) and not key)
+                 or (isinstance(key, slice) and key == slice(None)))
+        if not whole:
+            raise TypeError("h5lite overwrites whole datasets only (ds[:] ="
+                            " value).")
+        if node.compact is not None or _is_vlen_str(node.dtype):
+            raise TypeError(f"{self.name!r} is not a contiguous numeric"
+                            " dataset.")
+        arr = np.asarray(value, dtype=node.dtype)
+        if arr.shape != node.shape:
+            raise ValueError(f"Cannot write shape {arr.shape} into"
+                             f" {self.name!r} of shape {node.shape}.")
+        if node.data_size:
+            data = np.ascontiguousarray(arr).astype(
+                _storage_dtype(node.dtype), copy=False)
+            f._write(node.data_addr, memoryview(data).cast("B"))
 
 
 class Group:

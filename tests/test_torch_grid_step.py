@@ -15,6 +15,8 @@ the JAX initial state to the port, and ``chunk_fn`` runs in both.
   so the robust program (retries, top-up CG) is compared too.
 """
 
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -129,7 +131,7 @@ def test_float32_default_options_trajectory():
     assert tout.valid.sum() == 20
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
     device = _box_device(ttdgl)
     opts = dict(solve_time=1.0, field_units="mT", current_units="uA")
     with pytest.raises(ttdgl.SolverOptionsError, match="mxu"):
@@ -170,9 +172,13 @@ def test_unported_paths_raise():
     # Resume is ported: it opens the checkpointed run's file.
     with pytest.raises(FileNotFoundError, match="previous.h5"):
         solver.solve(resume_from="previous.h5")
-    with pytest.raises(NotImplementedError, match="visualization"):
+    # The live monitor is ported; where matplotlib is missing it raises
+    # before the first step.
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
         ttdgl.TDGLSolver(device, ttdgl.SolverOptions(monitor=True, **opts),
                          torch_device="cpu").solve()
+    monkeypatch.undo()
     # The default device is the card: without CUDA the solver raises.
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -149,6 +149,50 @@ def test_float64_snapshots_and_dynamics(f64_pair):
                 j.current_density.magnitude) < 1e-10
 
 
+def _gate_values(solution):
+    """The eight post-processing methods of ROADMAP Queue 1 item 4, on a
+    solution of the transport film (``length_units`` um)."""
+    rng = np.random.default_rng(5)
+    inside = rng.uniform([-6, -3], [6, 3], size=(40, 2))
+    above = np.stack([np.linspace(-8, 8, 7), np.zeros(7)], axis=1)
+    ys = np.linspace(-4, 4, 81)
+    centre = np.stack([np.zeros_like(ys), ys], axis=1)
+    out = {
+        "field_at_position": solution.field_at_position(
+            above, zs=1.0, with_units=False),
+        "field_at_position vector": solution.field_at_position(
+            above, zs=0.5, vector=True, with_units=False),
+        "vector_potential_at_position": solution.vector_potential_at_position(
+            above, zs=1.0, with_units=False),
+        "current_through_path": solution.current_through_path(
+            centre, with_units=False),
+        "vorticity": solution.vorticity.magnitude,
+        "interp_order_parameter": solution.interp_order_parameter(inside),
+        "interp_current_density": solution.interp_current_density(
+            inside, dataset="supercurrent"),
+    }
+    xgrid, ygrid, J = solution.grid_current_density(grid_shape=(30, 40))
+    out.update(grid_x=xgrid, grid_y=ygrid, grid_J=J)
+    for name, phases in solution.boundary_phases(delta=True).items():
+        out[f"boundary_phases {name} indices"] = phases.indices
+        out[f"boundary_phases {name}"] = phases.phases
+    return out
+
+
+def test_post_processing_gate(f64_pair):
+    """ROADMAP Queue 1 item 4's gate: the eight post-processing methods
+    agree with the JAX package's on the same run, to 1e-10."""
+    ours = _gate_values(f64_pair["torch"])
+    theirs = _gate_values(f64_pair["jax"])
+    assert sorted(ours) == sorted(theirs)
+    for name, ref in theirs.items():
+        got, ref = np.asarray(ours[name]), np.asarray(ref)
+        nan = np.isnan(ref)     # linear interpolation in the hole
+        assert np.array_equal(np.isnan(got), nan), name
+        assert _rel(got[~nan], ref[~nan]) < 1e-10, name
+    assert abs(ours["current_through_path"]) > 1.0
+
+
 def test_float32_default_options(f32_pair):
     (js, j), (ts, t) = f32_pair["jax"], f32_pair["torch"]
     assert ts.cfg.factor_link_phases and js.cfg.factor_link_phases
