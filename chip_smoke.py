@@ -157,11 +157,27 @@ twice (bitwise equal).
     matplotlib is installed, one rendered snapshot (else one line saying
     it is not).
 
-Phases 6, 7, 9, 10, 12, 13, 14 and 15 each reset the kernels' launch
+16. one structured solve in row blocks (``parallel.shard_solver_spatially``):
+    the film of phase 6 in 4 blocks of 64 rows on cuda:0 against the
+    unsharded solver. float64 at a fixed dt (``SHARD_STEPS`` steps, one
+    chunk): psi and mu within 1e-9 and 1e-7 relative of the unsharded
+    run, and each kernel launched 4 times per step against once; each
+    kernel on the blocks (halo rows, one launch per block) against its
+    plain version on the whole grid (float64, 1e-12); float32 with the
+    default options (adaptive dt, the fast program and its failover), 2
+    chunks of ``SHARD_F32_CHUNK`` steps each way: finite, the same step
+    count, the failovers counted; steps/s of each run (a correctness run:
+    every block issues the whole op sequence on one card, so no speed is
+    claimed); and an 8-member float64 field sweep over the mesh
+    ``[cuda:0, cuda:0]`` (two blocks of 4 members, ``SHARD_SWEEP_STEPS``
+    steps) against the one-batch sweep (1e-9).
+
+Phases 6, 7, 9, 10, 12, 13, 14, 15 and 16 each reset the kernels' launch
 counters just before each of their runs and read them just after; each
 count must match the step slots that run executed (chunks times chunk
 size, robust re-runs included), or in phase 14 the fixed-point iterations
-of the batch. The last two stdout lines are the kernels' JSON record and
+of the batch; a sharded run of phase 16 launches each kernel once per
+block and step slot. The last two stdout lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py`` (one
 GPU); ``--chunk`` and ``--solve-time`` resize phases 6 and 7,
 ``--ramp-time``/``--ramp-chunk`` phase 9, ``--screen-time``/
@@ -2330,6 +2346,219 @@ def run_postprocessing_path(pkg, args, device, options, inputs, tmp):
     return rec
 
 
+# Phase 16's depth: fixed-dt float64 steps of the sharded and unsharded
+# runs, steps per chunk of the float32 runs (2 chunks each), and steps of
+# the 8-member sweeps.
+SHARD_STEPS = 100
+SHARD_F32_CHUNK = 50
+SHARD_SWEEP_STEPS = 40
+
+
+def run_sharded_path(pkg, device, inputs):
+    """Phase 16: the structured film split into 4 row blocks on cuda:0
+    (``parallel.shard_solver_spatially``) against the unsharded solver,
+    and an 8-member sweep over the mesh ``[cuda:0, cuda:0]`` against the
+    one-batch sweep. Returns the phase's record (launches per path and
+    step slots, in the form of the other phases)."""
+    import numpy as np
+    import torch
+
+    from tdgl_tpu_torch import convert
+    from tdgl_tpu_torch.models import gtdgl_stencil as gs
+    from tdgl_tpu_torch.ops import rowblocks
+    from tdgl_tpu_torch.ops import step_kernels as sk
+    from tdgl_tpu_torch.parallel import (shard_solver_spatially,
+                                         solve_sweep, spatial_device_mesh)
+
+    cuda0 = torch.device("cuda", 0)
+    mesh = spatial_device_mesh([cuda0] * 4)
+    runs = {}
+
+    def chunks(solver, state, n_chunks, key):
+        """``n_chunks`` chunks with the counts reset just before and read
+        just after; returns the final state, the last outputs and
+        export, and the run's wall seconds."""
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        before = solver._failover_count
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            state, outputs, exported = solver.chunk_fn(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        failovers = solver._failover_count - before
+        runs[key] = dict(
+            launches={fn.__name__: fn.launches for fn in sk.KERNELS},
+            slots=(n_chunks + failovers) * solver.chunk_size,
+            steps=int(exported["diagnostics"][3]), seconds=wall,
+            failovers=failovers)
+        return state, outputs, exported
+
+    # float64, fixed dt: sharded against unsharded.
+    f64 = dict(solve_time=1e9, dt_init=1e-4, adaptive=False,
+               save_every=SHARD_STEPS, steps_per_chunk=SHARD_STEPS,
+               dtype="float64", field_units="mT", current_units="uA")
+    got = {}
+    for key, shard in (("unsharded f64", False), ("sharded f64", True)):
+        solver = pkg.TDGLSolver(device, pkg.SolverOptions(**f64),
+                                torch_device="cuda", **inputs)
+        state = solver._initial_state()
+        if shard:
+            state = shard_solver_spatially(solver, mesh)(state)
+            bounds = state.psi_r.layout.bounds
+            amg_levels = sum(isinstance(lev.get("inv_diag"),
+                                        rowblocks.RowBlocks)
+                             for lev in solver.amg.level_arrays)
+        state, _, exported = chunks(solver, state, 1, key)
+        got[key] = {k: v.cpu().numpy() for k, v in exported.items()}
+        if shard:
+            sharded_solver, sharded_state = solver, state
+    a, b = got["unsharded f64"], got["sharded f64"]
+    scale = np.abs(a["psi_real"]).max()
+    psi_err = max(np.abs(a[k] - b[k]).max() / scale
+                  for k in ("psi_real", "psi_imag"))
+    mu_err = np.abs(a["mu"] - b["mu"]).max() / np.abs(a["mu"]).max()
+    for key in ("unsharded f64", "sharded f64"):
+        r = runs[key]
+        log(f"  {key}: {r['steps']} steps, {r['seconds']:.2f} s ="
+            f" {r['steps'] / r['seconds']:.2f} steps/s"
+            f" ({1e3 * r['seconds'] / r['steps']:.2f} ms per step, first"
+            f" chunk included), launches per step"
+            + "".join(f" {n} {v / r['steps']:g}"
+                      for n, v in r["launches"].items()))
+    log(f"  row blocks {bounds} on cuda:0, {amg_levels} of"
+        f" {len(sharded_solver.amg.shapes)} multigrid levels sharded;"
+        f" float64 sharded vs unsharded after {SHARD_STEPS} steps:"
+        f" psi max rel diff {psi_err:.3e} (limit 1e-9), mu {mu_err:.3e}"
+        f" (limit 1e-7)")
+    assert not a["diagnostics"][5] and not b["diagnostics"][5]
+    assert runs["sharded f64"]["steps"] == SHARD_STEPS
+    assert psi_err < 1e-9 and mu_err < 1e-7, (psi_err, mu_err)
+    assert isinstance(sharded_state.psi_r, rowblocks.RowBlocks)
+    for name in ("fused_psi_update", "fused_poisson_rhs"):
+        ratio = (runs["sharded f64"]["launches"][name]
+                 / runs["unsharded f64"]["launches"][name])
+        assert ratio == 4, (name, ratio)
+        assert runs["sharded f64"]["launches"][name] == \
+            4 * runs["sharded f64"]["slots"]
+
+    # Each kernel on the row blocks against its plain version.
+    x = random_inputs(sharded_solver, seed=16,
+                      sten=sharded_solver.host_sten)
+    host = convert.stencil_to_torch(sharded_solver.host_sten, cuda0)
+    U = gs.factor_link_phases(host,
+                              rowblocks.gather(sharded_state.A_applied))
+    layout = sharded_state.psi_r.layout
+
+    def split(v):
+        return rowblocks.split(v, layout, -2)
+
+    bU = type(U)(rowblocks.split(U.cf, layout, -1),
+                 rowblocks.split(U.sf, layout, -1), U.cg, U.sg)
+    neumann = rowblocks.gather(sharded_state.neumann_term)
+    ops = rowblocks.RowStepOperands(sharded_solver.sten, bU,
+                                    split(x["dA"]), split(neumann))
+    g, u = sharded_solver.cfg.gamma, sharded_solver.cfg.u
+    dt = torch.tensor(1e-2, dtype=torch.float64, device=cuda0)
+    res = ops.psi_update(g, u, split(x["pr"]), split(x["pi"]),
+                         split(x["mu"]), split(x["eps"]), dt)
+    ref = sk.plain_psi_update(g, u, host, U, x["pr"], x["pi"], x["mu"],
+                              x["eps"], dt)
+    block_errs = {"fused_psi_update": max(
+        ((rowblocks.gather(p) - q).abs().max()
+         / max(q.abs().max(), 1.0)).item() for p, q in zip(res[:3],
+                                                           ref[:3]))}
+    assert bool(res[3]) == bool(ref[3])
+    rhs, J_s = ops.poisson_rhs(split(x["pr"]), split(x["pi"]),
+                               with_supercurrent=True)
+    rhs_ref, J_ref = sk.plain_poisson_rhs(host, U, x["pr"], x["pi"],
+                                          x["dA"], neumann,
+                                          with_supercurrent=True)
+    block_errs["fused_poisson_rhs"] = max(
+        ((rowblocks.gather(p) - q).abs().max()
+         / max(q.abs().max(), 1.0)).item()
+        for p, q in ((rhs, rhs_ref), (J_s, J_ref)))
+    log(f"  kernels on 4 row blocks (halo {rowblocks.KERNEL_HALO} rows,"
+        f" float64, factored links) against their plain versions on the"
+        f" whole grid: max rel err {block_errs}")
+    for name, err in block_errs.items():
+        assert err < F64_TOL, (name, err)
+
+    # float32, the default options (adaptive dt, the fast program and its
+    # failover), sharded and unsharded.
+    f32 = dict(solve_time=1e9, dt_init=1e-4, dt_max=1e-2,
+               save_every=SHARD_F32_CHUNK,
+               steps_per_chunk=SHARD_F32_CHUNK, field_units="mT",
+               current_units="uA", dtype="float32")
+    volts = {}
+    for key, shard in (("unsharded f32", False), ("sharded f32", True)):
+        solver = pkg.TDGLSolver(device, pkg.SolverOptions(**f32),
+                                torch_device="cuda", **inputs)
+        state = solver._initial_state()
+        if shard:
+            state = shard_solver_spatially(solver, mesh)(state)
+        state, outputs, exported = chunks(solver, state, 2, key)
+        mu_p = outputs.mu_probe.cpu().numpy()
+        volts[key] = float(np.abs(mu_p[:, 0] - mu_p[:, 1]).mean())
+        finite = all(bool(torch.isfinite(rowblocks.gather(
+            getattr(state, n))).all()) for n in ("psi_r", "psi_i", "mu"))
+        r = runs[key]
+        log(f"  {key} (adaptive dt): {r['steps']} steps, failovers"
+            f" {r['failovers']}, {r['steps'] / r['seconds']:.2f} steps/s,"
+            f" final t {float(exported['diagnostics'][0]):.4f}, last-chunk"
+            f" mean probe voltage {volts[key]:.6g}, finite {finite}")
+        assert finite and not bool(exported["diagnostics"][5])
+    assert runs["sharded f32"]["steps"] == runs["unsharded f32"]["steps"]
+
+    # An 8-member field sweep over the mesh [cuda:0, cuda:0] (two blocks
+    # of 4 members) against the one-batch sweep, in float64: a float32
+    # pair parts by ~1e-3 in 40 steps of this film's phase-slip regime
+    # (the multigrid's coarsest level is one matrix product per batch,
+    # rounded differently for 4 members and for 8).
+    sweep_opts = pkg.SolverOptions(
+        solve_time=1e9, dt_init=1e-4, dt_max=1e-2, field_units="mT",
+        current_units="uA", dtype="float64",
+        save_every=SHARD_SWEEP_STEPS // 2)
+    sweeps = {}
+    for key, m in (("one-batch sweep", None),
+                   ("mesh sweep", [cuda0, cuda0])):
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        sweeps[key] = solve_sweep(
+            device, sweep_opts, applied_vector_potential=0.5,
+            terminal_currents=inputs["terminal_currents"],
+            field_scales=np.linspace(0.5, 1.5, 8),
+            max_steps=SHARD_SWEEP_STEPS, mesh=m, torch_device="cuda")
+        torch.cuda.synchronize()
+        runs[key] = dict(
+            launches={fn.__name__: fn.launches for fn in sk.KERNELS},
+            slots=SHARD_SWEEP_STEPS * (1 if m is None else len(m)),
+            steps=int(sweeps[key].steps.max()),
+            seconds=time.perf_counter() - t0)
+    s1, s2 = sweeps["one-batch sweep"], sweeps["mesh sweep"]
+    sweep_err = float(max(np.abs(s1.psi - s2.psi).max(),
+                          np.abs(s1.mu - s2.mu).max()
+                          / np.abs(s1.mu).max()))
+    bitwise = bool(np.array_equal(s1.psi, s2.psi)
+                   and np.array_equal(s1.mu, s2.mu))
+    log(f"  8-member sweep over [cuda:0, cuda:0] against one batch:"
+        f" {SHARD_SWEEP_STEPS} steps, steps equal"
+        f" {bool(np.array_equal(s1.steps, s2.steps))}, max diff (psi abs,"
+        f" mu rel) {sweep_err:.3e}, bitwise {bitwise}; wall"
+        f" {runs['one-batch sweep']['seconds']:.2f} s and"
+        f" {runs['mesh sweep']['seconds']:.2f} s; launches"
+        f" {runs['one-batch sweep']['launches']} and"
+        f" {runs['mesh sweep']['launches']}")
+    assert np.array_equal(s1.steps, s2.steps)
+    assert not s1.failed.any() and not s2.failed.any()
+    assert sweep_err < 1e-9, sweep_err
+    return dict(runs=runs, psi_err=float(psi_err), mu_err=float(mu_err),
+                block_errs=block_errs, volts=volts, sweep_err=sweep_err,
+                sweep_bitwise=bitwise, bounds=bounds,
+                amg_levels_sharded=amg_levels)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--chunk", type=int, default=500,
@@ -2791,6 +3020,11 @@ def main() -> int:
                                        tmp)
     post["seconds"] = post_phase.seconds
 
+    with Phase("row-sharded solve and mesh sweep (4 blocks on cuda:0)") \
+            as shard_phase:
+        sharded = run_sharded_path(ttdgl, device, inputs)
+    sharded["seconds"] = shard_phase.seconds
+
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"],
@@ -2832,6 +3066,12 @@ def main() -> int:
     # Phase 15: the solve() beside the side-file reader.
     by_path["post-processing solve()"] = post["launches"]
     slots_by_path["post-processing solve()"] = post["slots"]
+    # Phase 16: each run's launches, counted from 0 just before it and
+    # read just after (a sharded step launches each kernel once per row
+    # block; the mesh sweep once per block of members).
+    for key, run in sharded["runs"].items():
+        by_path[key] = run["launches"]
+        slots_by_path[key] = run["slots"]
 
     def record(name, source, replaces):
         fac = timings[name]["factored"]
@@ -2883,7 +3123,7 @@ def main() -> int:
                     "screened_sweep": {k: v for k, v in
                                        screened_sweep.items()
                                        if k != "kernels"},
-                    "post": post}))
+                    "post": post, "sharded": sharded}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

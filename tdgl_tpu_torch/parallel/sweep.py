@@ -1,11 +1,11 @@
-"""Batched parameter sweeps on one card.
+"""Batched parameter sweeps, on one device or split over a device list.
 
 Port of :mod:`tdgl_tpu.parallel.sweep`: :func:`solve_sweep` runs B solves
 that differ only in a scale of the applied vector potential (a field sweep)
 or of every terminal current (a current sweep, e.g. an IV curve) as ONE
 batch. The JAX package ``vmap``s its robust chunk program and shards the
 batch over a device mesh; here the batch is a leading member axis of the
-solver state on one device, and the robust chunk of either backend
+solver state, and the robust chunk of either backend
 (:mod:`tdgl_tpu_torch.solver.grid_step`, :mod:`tdgl_tpu_torch.solver.step`)
 advances all members with one op sequence: one launch of each CUDA step
 kernel per step (per screening fixed-point iteration, with screening) for
@@ -17,10 +17,18 @@ fixed-point iteration evaluates it for all members at once (one batched
 FFT convolution, or one pairwise sum whose distance tiles serve every
 member), and each member file holds its member's induced potential.
 
+``mesh`` (a :class:`~tdgl_tpu_torch.parallel.spatial.DeviceMesh` or a
+list of devices; a device may repeat) splits the members into contiguous
+blocks, one per entry, as the JAX package shards its batch axis: each
+block runs as one batch on its device, chunk by chunk until every member
+is done, and the results come back in member order. ``mesh=None`` takes
+the JAX rule where ``torch_device`` is plain ``"cuda"``: the largest
+count of visible cards that divides B; a device with an index, or the
+CPU, runs the whole batch. A batch that does not divide over an
+explicit mesh raises.
+
 What differs from the JAX package:
 
-* ``mesh`` (a ``jax.sharding.Mesh``) has no counterpart: multi-device
-  sharding is not ported, and anything but None raises.
 * On the ELL backend the screening fixed point of a finished member's
   ghost steps runs no iteration (the JAX ELL loop does not test ``done``
   and, under ``vmap``, spins on them): less work, the same results
@@ -228,6 +236,59 @@ def _member_axis(state, B: int, per_member, scaled: Dict[str, torch.Tensor]):
     return state._replace(**fields)
 
 
+def _member_devices(mesh, B: int, torch_device) -> List[torch.device]:
+    """The mesh entries the B members split over (one block each). With
+    ``mesh=None``, a device with an index (``"cuda:1"``, ``"cpu"``) runs
+    the whole batch; plain ``"cuda"`` takes the JAX rule, the largest
+    count of visible cards that divides B."""
+    if mesh is None:
+        dev = torch.device(torch_device)
+        if dev.type != "cuda" or dev.index is not None:
+            return [dev]
+        n = max(torch.cuda.device_count(), 1)
+        while B % n:
+            n -= 1
+        if n == 1:
+            return [dev]
+        return [torch.device("cuda", i) for i in range(n)]
+    devices = getattr(mesh, "devices", mesh)
+    if isinstance(devices, (str, torch.device)) or not isinstance(
+            devices, (list, tuple)):
+        raise TypeError(
+            f"mesh must be a DeviceMesh or a list of devices, got"
+            f" {type(mesh).__name__}")
+    devices = [torch.device(d) for d in devices]
+    if not devices or B % len(devices):
+        raise ValueError(
+            f"{B} sweep members do not divide over the mesh's"
+            f" {len(devices)} devices")
+    return devices
+
+
+def _members(state, lo: int, hi: int, fields, device):
+    """Members ``[lo, hi)`` of a batched state on ``device``: the
+    ``fields`` with the member axis are cut, the others (shared by all
+    members) stay whole."""
+    return type(state)(*((v[lo:hi] if name in fields else v).to(device)
+                         for name, v in zip(state._fields, state)))
+
+
+def _cat_members(parts, single=None):
+    """Per-block chunk outputs (every field per member) or exports (a
+    field per member where it has one dim more than in ``single``, the
+    single run's export) joined in member order on the first block's
+    device; a shared field is taken from the first block."""
+    first = parts[0]
+    if hasattr(first, "_fields"):
+        dev = first.dt.device
+        return type(first)(*(torch.cat([v.to(dev) for v in vals])
+                             for vals in zip(*parts)))
+    dev = first["diagnostics"].device
+    return {k: (torch.cat([p[k].to(dev) for p in parts])
+                if first[k].dim() == np.ndim(single[k]) + 1 else first[k])
+            for k in first}
+
+
 def _to_host(tree):
     """A dict of tensors as host numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in tree.items()}
@@ -273,9 +334,12 @@ def solve_sweep(
         disorder_epsilon: As in :func:`tdgl_tpu_torch.solve`.
         field_scales: Multipliers for the applied vector potential.
         current_scales: Multipliers for all terminal currents.
-        mesh: Must be None: the batch runs on one device (the JAX
-            package's ``jax.sharding.Mesh`` argument; multi-device sharding
-            is not ported).
+        mesh: A :class:`~tdgl_tpu_torch.parallel.spatial.DeviceMesh`
+            (:func:`~tdgl_tpu_torch.parallel.spatial_device_mesh`) or a
+            list of devices: the members split into one contiguous block
+            per entry, each run as one batch on its device. None: for
+            ``torch_device="cuda"``, the largest count of visible cards
+            that divides B; else one batch on ``torch_device``.
         max_steps: Step cap (default: generous bound from dt_init).
         raise_on_failure: Raise ``RuntimeError`` if any member fails
             (discriminant-retry exhaustion / screening non-convergence).
@@ -286,7 +350,8 @@ def solve_sweep(
             schema and return full :class:`tdgl_tpu_torch.Solution` objects
             in ``SweepResult.solutions``.
         torch_device: Where the batch runs (keyword-only): ``"cuda"`` (the
-            default; raises where CUDA is not available) or ``"cpu"``.
+            default; raises where CUDA is not available) or ``"cpu"``;
+            with ``mesh``, where the solver is set up.
 
     Returns:
         A :class:`SweepResult`.
@@ -295,18 +360,12 @@ def solve_sweep(
         raise ValueError(
             "Exactly one of field_scales / current_scales must be given."
         )
-    if mesh is not None:
-        raise ValueError(
-            "mesh= selects a multi-device jax.sharding.Mesh; tdgl_tpu_torch"
-            " runs a sweep as one batch on one device, and multi-device"
-            " sharding is not ported (ROADMAP Queue 1 item 6). Pass"
-            " mesh=None."
-        )
     scales = np.asarray(
         field_scales if field_scales is not None else current_scales,
         dtype=float,
     )
     B = len(scales)
+    mesh_devices = _member_devices(mesh, B, torch_device)
     dynamic_currents = callable(terminal_currents)
     solver = TDGLSolver(
         device, options,
@@ -386,16 +445,61 @@ def solve_sweep(
     else:
         scaled = {"mu_boundary": bscale(base_state.mu_boundary)}
     state = _member_axis(base_state, B, per_member, scaled)
+    member_fields = set(per_member) | set(scaled) | {
+        name for name in state._fields
+        if getattr(base_state, name).dim() == 0}
 
     chunk_size = solver.chunk_size
-    if structured:
-        def batched_chunk(st):
-            return solver._raw_chunk_fn(solver.sten, solver.amg, st,
-                                        solver._screening)
-    else:
-        def batched_chunk(st):
-            return solver._raw_chunk_fn(solver.op, solver._screening,
-                                        solver.amg, st)
+
+    def indexed(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    solvers = {indexed(dev): solver}
+
+    def solver_on(d):
+        """The solver whose operands live on device ``d``."""
+        d = indexed(d)
+        if d not in solvers:
+            solvers[d] = TDGLSolver(
+                device, options,
+                applied_vector_potential=applied_vector_potential,
+                terminal_currents=(_host_currents(terminal_currents, 0.0)
+                                   if dynamic_currents
+                                   else terminal_currents),
+                disorder_epsilon=disorder_epsilon, torch_device=d)
+        return solvers[d]
+
+    def block_chunk(s, st):
+        if structured:
+            return s._raw_chunk_fn(s.sten, s.amg, st, s._screening)
+        return s._raw_chunk_fn(s.op, s._screening, s.amg, st)
+
+    # The member blocks: (solver, first member, stop) per mesh entry.
+    size = B // len(mesh_devices)
+    blocks = [(solver_on(d), i * size, (i + 1) * size)
+              for i, d in enumerate(mesh_devices)]
+
+    if len(blocks) > 1:
+        state = [_members(state, lo, hi, member_fields, s.torch_device)
+                 for s, lo, hi in blocks]
+
+    def batched_chunk(st):
+        """One chunk of every block: the blocks' states, and the outputs
+        and exports in member order (on the first block's device)."""
+        if len(blocks) == 1:
+            return block_chunk(solver, st)
+        res = [block_chunk(s, b) for (s, _, _), b in zip(blocks, st)]
+        return ([r[0] for r in res], _cat_members([r[1] for r in res]),
+                _cat_members([r[2] for r in res], solver._initial_export))
+
+    def next_state(st, fields):
+        if len(blocks) == 1:
+            return st._replace(**fields)
+        return [b._replace(**{k: v[lo:hi].to(s.torch_device)
+                              for k, v in fields.items()})
+                for b, (s, lo, hi) in zip(st, blocks)]
 
     if max_steps is None:
         max_steps = int(
@@ -416,7 +520,7 @@ def solve_sweep(
         if dynamic_currents:
             # Re-evaluate the bias at each member's own simulation time and
             # push the new Neumann BCs for the next chunk.
-            state = state._replace(**bc_update(diag[:, 0]))
+            state = next_state(state, bc_update(diag[:, 0]))
     diag = exported["diagnostics"]
     failed = diag[:, 5] > 0
     if raise_on_failure and bool(np.any(failed)):

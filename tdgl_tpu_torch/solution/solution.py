@@ -398,9 +398,13 @@ class Solution:
         interp = self._interpolator(method)
         positions = np.atleast_2d(positions)
         J_mag = J.to(units).magnitude
-        Jx = interp(J_mag[:, 0], positions[:, 0], positions[:, 1])
-        Jy = interp(J_mag[:, 1], positions[:, 0], positions[:, 1])
-        out = np.stack([Jx, Jy], axis=1)
+        if method == "linear":
+            # Both components from one search for the points.
+            out = interp(J_mag, positions[:, 0], positions[:, 1])
+        else:
+            out = np.stack([interp(J_mag[:, i], positions[:, 0],
+                                   positions[:, 1]) for i in range(2)],
+                           axis=1)
         out[~np.isfinite(out).all(axis=1)] = 0
         out[~self.device.contains_points(positions)] = 0
         if with_units:

@@ -20,8 +20,8 @@ class LinearTriInterpolator:
     Args:
         points: ``(n, 2)`` vertex coordinates.
         triangles: ``(m, 3)`` vertex indices of each triangle.
-        candidates: Nearest triangle centroids tested per point before the
-            exhaustive search.
+        candidates: Nearest triangle centroids tested per point before
+            the search among all triangles within reach.
     """
 
     def __init__(self, points: np.ndarray, triangles: np.ndarray,
@@ -44,6 +44,7 @@ class LinearTriInterpolator:
             corners - centroids[:, None], axis=2).max())
         self._k = min(candidates, len(self.triangles))
         self._eps = 1e-10
+        self._last = None
 
     def _barycentric(self, xy: np.ndarray, tri: np.ndarray) -> np.ndarray:
         """``(p, 3)`` barycentric coordinates of ``xy`` in triangles
@@ -71,26 +72,46 @@ class LinearTriInterpolator:
             hit = (lam >= -self._eps).all(axis=1)
             index[todo[hit]] = tri[hit]
             bary[todo[hit]] = lam[hit]
-        # Points beyond every triangle's reach lie outside the mesh; test
-        # the rest against all triangles.
-        reach = np.reshape(dist, (n, -1))[:, 0] <= self._reach
-        for p in np.flatnonzero((index < 0) & reach):
-            lam = self._barycentric(
-                np.broadcast_to(xy[p], (len(self.triangles), 2)),
-                np.arange(len(self.triangles)))
-            hits = np.flatnonzero((lam >= -self._eps).all(axis=1))
-            if len(hits):
-                index[p] = hits[0]
-                bary[p] = lam[hits[0]]
+        # Points beyond every triangle's reach lie outside the mesh. The
+        # rest are tested in one pass against every triangle whose
+        # centroid lies within that reach (a triangle that holds a point
+        # does), the lowest index winning as in a scan of all triangles.
+        rest = np.flatnonzero(
+            (index < 0) & (np.reshape(dist, (n, -1))[:, 0] <= self._reach))
+        if len(rest):
+            lists = self._tree.query_ball_point(xy[rest],
+                                                r=self._reach * (1 + 1e-9))
+            counts = np.fromiter((len(c) for c in lists), np.int64,
+                                 len(lists))
+            pt = np.repeat(np.arange(len(rest)), counts)
+            tri = np.fromiter((t for c in lists for t in sorted(c)),
+                              np.int64, int(counts.sum()))
+            lam = self._barycentric(xy[rest[pt]], tri)
+            hit = np.flatnonzero((lam >= -self._eps).all(axis=1))
+            # First hit of each point: its candidates are sorted.
+            first = hit[np.unique(pt[hit], return_index=True)[1]]
+            index[rest[pt[first]]] = tri[first]
+            bary[rest[pt[first]]] = lam[first]
         return index, bary
 
+    def _find_once(self, x, y):
+        """:meth:`find`, kept for the last points asked for (a second
+        quantity at the same points reuses it)."""
+        xy = np.stack([np.ravel(x), np.ravel(y)], axis=1).astype(np.float64)
+        if self._last is None or not np.array_equal(self._last[0], xy):
+            self._last = (xy, *self.find(x, y))
+        return self._last[1:]
+
     def __call__(self, values: np.ndarray, x, y) -> np.ndarray:
-        """Interpolate vertex ``values`` at the points ``(x, y)``; NaN
-        outside the mesh."""
-        index, bary = self.find(x, y)
+        """Interpolate vertex ``values`` (``(n,)``, or ``(n, k)`` for k
+        quantities at once) at the points ``(x, y)``; NaN outside the
+        mesh."""
+        index, bary = self._find_once(x, y)
         values = np.asarray(values)
-        out = np.full(len(index), np.nan, dtype=np.result_type(values, float))
+        out = np.full((len(index),) + values.shape[1:], np.nan,
+                      dtype=np.result_type(values, float))
         inside = index >= 0
         corners = self.triangles[index[inside]]
-        out[inside] = np.einsum("pk,pk->p", bary[inside], values[corners])
-        return out.reshape(np.shape(x))
+        out[inside] = np.einsum("pk,pk...->p...", bary[inside],
+                                values[corners])
+        return out.reshape(np.shape(x) + values.shape[1:])

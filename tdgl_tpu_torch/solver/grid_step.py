@@ -49,7 +49,7 @@ import torch
 
 from ..models import gtdgl_stencil as gs
 from ..ops.cg import solve_mu_poisson_grid
-from ..ops.step_kernels import StencilOperands, StepOperands
+from ..ops.step_kernels import StepOperands
 from .step import (StepConfig, StepOutputs, adaptive_window,
                    induced_potential_update, member_view, plane_max,
                    retry_members, screening_error, screening_fixed_point,
@@ -331,11 +331,14 @@ def make_grid_step_fn(cfg: StepConfig):
     return step
 
 
-def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
+def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int,
+                       operands=StepOperands):
     """``(sten, amg, state, screening=None) -> (state, outputs,
     exported)`` advancing up to ``chunk_size`` steps, as a Python loop over
     steps (``screening``: ``(weights, fft_data)`` when
-    ``cfg.include_screening``).
+    ``cfg.include_screening``). ``operands(sten, U, dA_dt, neumann_term)``
+    makes the step kernels' operands (a
+    :class:`~tdgl_tpu_torch.ops.step_kernels.StepOperands` by default).
 
     Mirrors the JAX chunk program:
 
@@ -376,8 +379,7 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
                 static_link = gs.factor_link_phases(sten, state.A_applied)
             else:
                 static_link = gs.edge_link_phases(sten, state.A_applied)
-        ops = StepOperands(StencilOperands(sten), static_link, state.dA_dt,
-                           state.neumann_term)
+        ops = operands(sten, static_link, state.dA_dt, state.neumann_term)
         aux = dict(
             probe_ix=torch.tensor(list(cfg.probe_ix or ()), dtype=torch.long,
                                   device=dev),

@@ -3,11 +3,13 @@
 :func:`run` (reference ``tdgl/testing.py:10``) runs the port's own test
 files so an installation can verify itself. :func:`periodic_stencil` is
 a fixture of the kernel checks, imported by the tests and by
-``chip_smoke.py``; the solver does not use it.
+``chip_smoke.py``; :func:`one_hierarchy_per_mesh` lets the tests build
+each mesh's multigrid hierarchy once. The solver uses neither.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import importlib.util
 import os
@@ -69,3 +71,34 @@ def periodic_stencil(sten, seed: int):
         area=(1.0 / inv_area).astype(dtype), inv_area=inv_area,
         fixed_mask=np.zeros(shape, dtype),
     )
+
+
+@contextlib.contextmanager
+def one_hierarchy_per_mesh(*targets):
+    """While open, each ``(module, name)`` in ``targets`` names a
+    multigrid build function (``build_hexmg(sten, maps, mesh, ...)``,
+    either package's) that runs once per mesh: a later call on the same
+    grid, sites, edges and arguments returns the hierarchy the first call
+    built (the build reads only those, and its coarsest pseudo-inverse is
+    most of a solver's set-up). Each target keeps its own hierarchies."""
+    saved = []
+    for module, name in targets:
+        original = getattr(module, name)
+
+        def build_once(sten, maps, mesh, *args, _fn=original, _built={},
+                       **kwargs):
+            key = (tuple(maps.shape), np.asarray(maps.site_flat).tobytes(),
+                   np.asarray(mesh.sites).tobytes(),
+                   np.asarray(mesh.edge_mesh.edges).tobytes(), args,
+                   tuple(sorted(kwargs.items())))
+            if key not in _built:
+                _built[key] = _fn(sten, maps, mesh, *args, **kwargs)
+            return _built[key]
+
+        saved.append((module, name, original))
+        setattr(module, name, build_once)
+    try:
+        yield
+    finally:
+        for module, name, original in reversed(saved):
+            setattr(module, name, original)

@@ -73,7 +73,8 @@ def test_package_has_modules(trees):
                      "sources/scaling.py", "sources/loop.py",
                      "sources/constant.py", "parameter.py",
                      "fv/operators.py", "models/gtdgl.py", "ops/amg.py",
-                     "utils/pickles.py", "parallel/sweep.py"):
+                     "utils/pickles.py", "parallel/sweep.py",
+                     "parallel/spatial.py", "ops/rowblocks.py"):
         assert required in names
 
 

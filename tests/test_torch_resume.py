@@ -62,6 +62,19 @@ def one_blas_thread():
         yield
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_hierarchy_per_mesh():
+    """Each package builds a mesh's multigrid hierarchy once in this
+    module (``tdgl_tpu_torch.testing.one_hierarchy_per_mesh``)."""
+    from tdgl_tpu.ops import hexmg as jhexmg
+    from tdgl_tpu_torch import testing
+    from tdgl_tpu_torch.solver import solver as tsolver
+
+    with testing.one_hierarchy_per_mesh((jhexmg, "build_hexmg"),
+                                        (tsolver, "build_hexmg")):
+        yield
+
+
 def _device(structured: bool, min_points: int = 300):
     layer = ttdgl.Layer(coherence_length=1.0, london_lambda=2.0,
                         thickness=0.1, conductivity=10.0)

@@ -47,9 +47,7 @@ from threadpoolctl import threadpool_limits
 
 import tdgl_tpu as jtdgl
 import tdgl_tpu_torch as ttdgl
-from tdgl_tpu_torch.ops.hexmg import build_hexmg
 from tdgl_tpu_torch.solution.tri_interp import LinearTriInterpolator
-from tdgl_tpu_torch.solver import solver as solver_module
 
 torch.set_num_threads(1)
 
@@ -63,6 +61,19 @@ def one_blas_thread():
     set-up takes a dense pseudo-inverse (numpy's OpenBLAS), whose eight
     threads spin for seconds on a CPU the other test workers keep busy."""
     with threadpool_limits(limits=1):
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_hierarchy_per_mesh():
+    """Each package builds a mesh's multigrid hierarchy once in this
+    module (``tdgl_tpu_torch.testing.one_hierarchy_per_mesh``)."""
+    from tdgl_tpu.ops import hexmg as jhexmg
+    from tdgl_tpu_torch import testing
+    from tdgl_tpu_torch.solver import solver as tsolver
+
+    with testing.one_hierarchy_per_mesh((jhexmg, "build_hexmg"),
+                                        (tsolver, "build_hexmg")):
         yield
 
 
@@ -294,28 +305,20 @@ def _fo_device():
 @pytest.fixture(scope="module")
 def fo_solves():
     device = _fo_device()
-    # The four solvers share the device: build the multigrid hierarchy
-    # (its coarsest level is a 2048 x 2048 pseudo-inverse) once per dtype.
-    built = {}
-
-    def build_once(sten, maps, mesh):
-        key = np.asarray(sten.w).dtype
-        if key not in built:
-            built[key] = build_hexmg(sten, maps, mesh)
-        return built[key]
-
+    # The four solvers share the device and so its multigrid hierarchy
+    # (its coarsest level is a 2048 x 2048 pseudo-inverse, and the build
+    # reads the mesh, not the stencil's dtype): the module's
+    # one_hierarchy_per_mesh builds it once.
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(solver_module, "build_hexmg", build_once)
-        for dtype in ("float64", "float32"):
-            for failover in ("auto", "off"):
-                options = ttdgl.SolverOptions(
-                    solve_time=0.3, dt_init=1e-5, save_every=20,
-                    output_file=None, dtype=dtype, chunk_failover=failover)
-                solver = ttdgl.TDGLSolver(device, options,
-                                          applied_vector_potential=0.4,
-                                          torch_device="cpu")
-                out[dtype, failover] = (solver, solver.solve())
+    for dtype in ("float64", "float32"):
+        for failover in ("auto", "off"):
+            options = ttdgl.SolverOptions(
+                solve_time=0.3, dt_init=1e-5, save_every=20,
+                output_file=None, dtype=dtype, chunk_failover=failover)
+            solver = ttdgl.TDGLSolver(device, options,
+                                      applied_vector_potential=0.4,
+                                      torch_device="cpu")
+            out[dtype, failover] = (solver, solver.solve())
     return out
 
 
@@ -369,8 +372,11 @@ def test_fast_cfg_gate_value(fo_solves):
 
 
 # -- (e) no h5py, cloudpickle, tqdm, matplotlib, jax or tdgl_tpu ---------------
-_NO_EXTRAS = textwrap.dedent("""
+# One process for (e) and the seed of (f): each part prints "ok <part>"
+# or its traceback.
+_NO_JAX_PROCESS = textwrap.dedent("""
     import sys
+    import traceback
     for name in ("h5py", "cloudpickle", "tqdm", "matplotlib", "jax",
                  "tdgl_tpu"):
         sys.modules[name] = None
@@ -379,51 +385,108 @@ _NO_EXTRAS = textwrap.dedent("""
     torch.set_num_threads(1)
     import tdgl_tpu_torch as ttdgl
 
-    layer = ttdgl.Layer(coherence_length=1.0, london_lambda=2.0,
-                        thickness=0.1, conductivity=10.0)
-    film = ttdgl.Polygon("film", points=ttdgl.box(10)).resample(100)
-    source = ttdgl.Polygon("source", points=ttdgl.box(1, 4, center=(-5, 0)))
-    drain = ttdgl.Polygon("drain", points=ttdgl.box(1, 4, center=(5, 0)))
-    device = ttdgl.Device("box", layer=layer, film=film,
-                          terminals=[source, drain],
-                          probe_points=[(-2, 0), (2, 0)], length_units="um")
-    device.make_mesh(min_points=400, structured=True)
-    options = ttdgl.SolverOptions(solve_time=0.02, skip_time=0.01,
-                                  dt_init=1e-3, save_every=10,
-                                  output_file=sys.argv[1],
-                                  field_units="mT", current_units="uA")
-    kw = dict(applied_vector_potential=0.5,
-              terminal_currents=dict(source=2.0, drain=-2.0),
-              torch_device="cpu")
-    solution = ttdgl.solve(device, options, **kw)
-    assert ttdgl.Solution.from_hdf5(solution.path).equals(solution)
-    # Thermalization (skip_time) ran first; the clock restarted at 0.
-    assert solution.tdgl_data.state["step"] == len(solution.dynamics.dt)
-    assert np.isfinite(solution.magnetic_moment(with_units=False))
-    assert solution.hole_fluxoid is not None
-    try:
-        ttdgl.solve(device, options, disorder_epsilon=lambda r: 1.0,
-                    **kw)
-    except ValueError as exc:
-        assert "disorder_epsilon" in str(exc), exc
-    else:
-        raise AssertionError("a lambda pickled without cloudpickle")
-    missing = [m for m in ("h5py", "cloudpickle", "tqdm", "matplotlib",
-                           "jax", "tdgl_tpu") if sys.modules.get(m)]
-    assert not missing, missing
-    print("ok", solution.data_range)
+
+    def solve_without_extras(out):
+        layer = ttdgl.Layer(coherence_length=1.0, london_lambda=2.0,
+                            thickness=0.1, conductivity=10.0)
+        film = ttdgl.Polygon("film", points=ttdgl.box(10)).resample(100)
+        source = ttdgl.Polygon("source",
+                               points=ttdgl.box(1, 4, center=(-5, 0)))
+        drain = ttdgl.Polygon("drain", points=ttdgl.box(1, 4, center=(5, 0)))
+        device = ttdgl.Device("box", layer=layer, film=film,
+                              terminals=[source, drain],
+                              probe_points=[(-2, 0), (2, 0)],
+                              length_units="um")
+        device.make_mesh(min_points=400, structured=True)
+        options = ttdgl.SolverOptions(solve_time=0.02, skip_time=0.01,
+                                      dt_init=1e-3, save_every=10,
+                                      output_file=out,
+                                      field_units="mT", current_units="uA")
+        kw = dict(applied_vector_potential=0.5,
+                  terminal_currents=dict(source=2.0, drain=-2.0),
+                  torch_device="cpu")
+        solution = ttdgl.solve(device, options, **kw)
+        assert ttdgl.Solution.from_hdf5(solution.path).equals(solution)
+        # Thermalization (skip_time) ran first; the clock restarted at 0.
+        assert solution.tdgl_data.state["step"] == len(solution.dynamics.dt)
+        assert np.isfinite(solution.magnetic_moment(with_units=False))
+        assert solution.hole_fluxoid is not None
+        try:
+            ttdgl.solve(device, options, disorder_epsilon=lambda r: 1.0,
+                        **kw)
+        except ValueError as exc:
+            assert "disorder_epsilon" in str(exc), exc
+        else:
+            raise AssertionError("a lambda pickled without cloudpickle")
+        missing = [m for m in ("h5py", "cloudpickle", "tqdm", "matplotlib",
+                               "jax", "tdgl_tpu") if sys.modules.get(m)]
+        assert not missing, missing
+        return solution.data_range
+
+
+    def seed_from_jax_file(path, out):
+        seed = ttdgl.Solution.from_hdf5(path)
+        assert seed.data_range == (0, 5), seed.data_range
+        assert seed.terminal_currents == {"source": 5.0, "drain": -5.0}
+        assert isinstance(seed.applied_vector_potential, ttdgl.Parameter)
+        # The JAX package stored its uniform disorder by value with
+        # cloudpickle, which this process lacks: reading it raises, the
+        # rest loads.
+        try:
+            seed.disorder_epsilon
+        except RuntimeError as exc:
+            assert "cloudpickle" in str(exc), exc
+        else:
+            raise AssertionError("a cloudpickle stream loaded without it")
+        options = ttdgl.SolverOptions(solve_time=0.005, dt_init=1e-3,
+                                      adaptive=False, save_every=5,
+                                      dtype="float64", output_file=out,
+                                      field_units="mT", current_units="uA")
+        solution = ttdgl.solve(seed.device, options,
+                               applied_vector_potential=0.5,
+                               terminal_currents=seed.terminal_currents,
+                               seed_solution=seed, torch_device="cpu")
+        solution.solve_step = 0
+        assert np.array_equal(solution.tdgl_data.psi, seed.tdgl_data.psi)
+        assert ("tdgl_tpu" not in sys.modules
+                or sys.modules["tdgl_tpu"] is None)
+        loaded = [m for m in sys.modules if m.startswith("tdgl_tpu.")]
+        assert not loaded, loaded
+        return solution.data_range
+
+
+    for part, run, args in (
+            ("no extras", solve_without_extras, sys.argv[1:2]),
+            ("jax file seed", seed_from_jax_file, sys.argv[2:4])):
+        try:
+            print("ok", part, run(*args))
+        except BaseException:
+            print("failed", part)
+            traceback.print_exc()
 """)
 
 
-def test_solve_without_optional_packages(tmp_path):
+@pytest.fixture(scope="module")
+def no_jax_process(f64_pair, tmp_path_factory):
+    """(e) and the seed of (f) in one process where h5py, cloudpickle,
+    tqdm, matplotlib, jax and tdgl_tpu cannot be imported."""
+    tmp = tmp_path_factory.mktemp("no_jax")
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
                OPENBLAS_NUM_THREADS="1")
     result = subprocess.run(
-        [sys.executable, "-c", _NO_EXTRAS, str(tmp_path / "out.h5")],
-        cwd=str(tmp_path), env=env, capture_output=True, text=True,
-        timeout=300)
+        [sys.executable, "-c", _NO_JAX_PROCESS, str(tmp / "out.h5"),
+         f64_pair["jax"].path, str(tmp / "seeded.h5")],
+        cwd=str(tmp), env=env, capture_output=True, text=True, timeout=300)
     assert result.returncode == 0, result.stderr[-3000:]
-    assert result.stdout.strip().startswith("ok"), result.stdout
+    return result
+
+
+def _part_ok(result, part):
+    assert f"ok {part}" in result.stdout, (result.stdout,
+                                           result.stderr[-3000:])
+
+def test_solve_without_optional_packages(no_jax_process):
+    _part_ok(no_jax_process, "no extras")
 
 
 # -- (f) the JAX package's output file in the port ---------------------------
@@ -490,50 +553,5 @@ def test_resume_from_jax_checkpoint(f64_pair, tmp_path):
                     getattr(t.dynamics, name)) < 1e-10, name
 
 
-_JAX_FILE_WITHOUT_JAX = textwrap.dedent("""
-    import sys
-    for name in ("h5py", "cloudpickle", "jax", "tdgl_tpu"):
-        sys.modules[name] = None
-    import numpy as np
-    import torch
-    torch.set_num_threads(1)
-    import tdgl_tpu_torch as ttdgl
-
-    seed = ttdgl.Solution.from_hdf5(sys.argv[1])
-    assert seed.data_range == (0, 5), seed.data_range
-    assert seed.terminal_currents == {"source": 5.0, "drain": -5.0}
-    assert isinstance(seed.applied_vector_potential, ttdgl.Parameter)
-    # The JAX package stored its uniform disorder by value with cloudpickle,
-    # which this process lacks: reading it raises, the rest loads.
-    try:
-        seed.disorder_epsilon
-    except RuntimeError as exc:
-        assert "cloudpickle" in str(exc), exc
-    else:
-        raise AssertionError("a cloudpickle stream loaded without it")
-    options = ttdgl.SolverOptions(solve_time=0.005, dt_init=1e-3,
-                                  adaptive=False, save_every=5,
-                                  dtype="float64", output_file=sys.argv[2],
-                                  field_units="mT", current_units="uA")
-    solution = ttdgl.solve(seed.device, options, applied_vector_potential=0.5,
-                           terminal_currents=seed.terminal_currents,
-                           seed_solution=seed, torch_device="cpu")
-    solution.solve_step = 0
-    assert np.array_equal(solution.tdgl_data.psi, seed.tdgl_data.psi)
-    assert "tdgl_tpu" not in sys.modules or sys.modules["tdgl_tpu"] is None
-    loaded = [m for m in sys.modules if m.startswith("tdgl_tpu.")]
-    assert not loaded, loaded
-    print("ok", solution.data_range)
-""")
-
-
-def test_jax_file_seeds_without_jax(f64_pair, tmp_path):
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
-               OPENBLAS_NUM_THREADS="1")
-    result = subprocess.run(
-        [sys.executable, "-c", _JAX_FILE_WITHOUT_JAX, f64_pair["jax"].path,
-         str(tmp_path / "seeded.h5")],
-        cwd=str(tmp_path), env=env, capture_output=True, text=True,
-        timeout=300)
-    assert result.returncode == 0, result.stderr[-3000:]
-    assert result.stdout.strip().startswith("ok"), result.stdout
+def test_jax_file_seeds_without_jax(no_jax_process):
+    _part_ok(no_jax_process, "jax file seed")

@@ -23,10 +23,12 @@
   50.
 * (d) A port member file read with h5py equals the JAX member file field
   by field, and each package's ``Solution`` loads the other's file.
-* (e) What the port does not run raises: ``mesh=`` and ``field_scales``
-  with a time-dependent applied potential (which the JAX package runs
-  unscaled for every member). Screened sweeps run: see
-  ``tests/test_torch_screened_sweep.py``.
+* (e) What the port does not run raises: ``field_scales`` with a
+  time-dependent applied potential (which the JAX package runs unscaled
+  for every member); so do a batch that does not divide over ``mesh=``
+  and a ``mesh`` that is neither a ``DeviceMesh`` nor a device list
+  (``tests/test_torch_spatial.py`` runs a sweep over a device list).
+  Screened sweeps run: see ``tests/test_torch_screened_sweep.py``.
 """
 
 import h5py
@@ -51,6 +53,19 @@ def one_blas_thread():
     """One BLAS thread for this module's solver set-ups (see
     ``tests/test_torch_solve.py``)."""
     with threadpool_limits(limits=1):
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_hierarchy_per_mesh():
+    """Each package builds a mesh's multigrid hierarchy once in this
+    module (``tdgl_tpu_torch.testing.one_hierarchy_per_mesh``)."""
+    from tdgl_tpu.ops import hexmg as jhexmg
+    from tdgl_tpu_torch import testing
+    from tdgl_tpu_torch.solver import solver as tsolver
+
+    with testing.one_hierarchy_per_mesh((jhexmg, "build_hexmg"),
+                                        (tsolver, "build_hexmg")):
         yield
 
 
@@ -301,8 +316,9 @@ def test_sweep_failed_member_surfaced():
 
 
 def test_sweep_validation_and_unported_paths():
-    """(c), (e) Exactly one of the scales; ``mesh=`` and a time-dependent
-    field under ``field_scales`` raise."""
+    """(c), (e) Exactly one of the scales; a batch that does not divide
+    over ``mesh=``, a mesh that is not one, and a time-dependent field
+    under ``field_scales`` raise."""
     device = _box(ttdgl)
     options = ttdgl.SolverOptions(solve_time=1)
     with pytest.raises(ValueError):
@@ -310,7 +326,10 @@ def test_sweep_validation_and_unported_paths():
     with pytest.raises(ValueError):
         tsweep.solve_sweep(device, options, field_scales=[1],
                            current_scales=[1], torch_device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="do not divide"):
+        tsweep.solve_sweep(device, options, field_scales=[1],
+                           mesh=["cpu", "cpu"], torch_device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsweep.solve_sweep(device, options, field_scales=[1],
                            mesh=object(), torch_device="cpu")
     ramp = (ttdgl.ConstantField(1.0, field_units="uT")
@@ -322,6 +341,21 @@ def test_sweep_validation_and_unported_paths():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tsweep.solve_sweep(device, options, field_scales=[1])
+
+
+def test_member_devices_of_mesh_none(monkeypatch):
+    """(e) ``mesh=None`` splits the members over the visible cards only
+    for a plain ``"cuda"``: the largest count that divides B (the JAX
+    rule); a named card or the CPU runs the whole batch."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cuda = [torch.device("cuda", i) for i in range(2)]
+    assert tsweep._member_devices(None, 4, "cuda") == cuda
+    assert tsweep._member_devices(None, 3, "cuda") == [torch.device("cuda")]
+    for named in ("cuda:1", "cuda:0", "cpu"):
+        assert tsweep._member_devices(None, 4, named) == [
+            torch.device(named)]
+    assert tsweep._member_devices(["cpu", "cpu"], 4, "cuda:1") == [
+        torch.device("cpu")] * 2
 
 
 def plain_field(x, y, z):

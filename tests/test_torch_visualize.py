@@ -16,13 +16,17 @@ h5lite, the JAX package through h5py), and:
   interactive plots (mirrors of ``tests/test_visualize.py:122,176``) agree;
 * ``convert_to_xdmf`` writes the same XML up to file names and, read
   with h5py, the same heavy datasets to 1e-12;
-* the port's CLI runs in subprocesses from the repo root: ``--help``,
-  ``snapshot``, ``convert`` and ``animate``.
+* the port's CLI runs from the repo root, each of ``--help``,
+  ``snapshot``, ``convert`` and ``animate`` as ``python -m
+  tdgl_tpu_torch.visualize`` runs it, one after another in one
+  subprocess.
 """
 
+import json
 import os
 import subprocess
 import sys
+import textwrap
 
 import h5py
 import numpy as np
@@ -318,7 +322,7 @@ def test_convert_to_xdmf(solved, writer, tmp_path):
     assert sum(n.startswith("frame_") and "/" not in n for n in names) == 6
 
 
-# -- the CLI, in subprocesses started together --------------------------------
+# -- the CLI, each command run as ``python -m`` runs it, in one subprocess --
 CLI = {
     "help": ["--help"],
     "snapshot": ["snapshot", "--times", "0.05", "0.1"],
@@ -327,6 +331,36 @@ CLI = {
                 "--max-frame", "3"],
 }
 
+# Runs ``python -m tdgl_tpu_torch.visualize <args>`` for each command in
+# turn (``runpy``, as ``-m`` does), capturing its exit code, stdout and
+# stderr; prints them as JSON.
+_CLI_RUNNER = textwrap.dedent("""
+    import contextlib
+    import io
+    import json
+    import runpy
+    import sys
+    import traceback
+
+    results = {}
+    for name, argv in json.loads(sys.argv[1]).items():
+        out, err = io.StringIO(), io.StringIO()
+        sys.argv = ["tdgl_tpu_torch.visualize"] + argv
+        code = 0
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                runpy.run_module("tdgl_tpu_torch.visualize",
+                                 run_name="__main__", alter_sys=True)
+            except SystemExit as exc:
+                code = (exc.code if isinstance(exc.code, int)
+                        else int(exc.code is not None))
+            except BaseException:
+                traceback.print_exc()
+                code = 1
+        results[name] = (code, out.getvalue(), err.getvalue())
+    print(json.dumps(results))
+""")
+
 
 @pytest.fixture(scope="module")
 def cli_runs(solved, tmp_path_factory):
@@ -334,19 +368,15 @@ def cli_runs(solved, tmp_path_factory):
     path, _ = solved["torch"]
     env = dict(os.environ, MPLBACKEND="Agg", PYTHONPATH=ROOT,
                OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
-    procs = {}
-    for name, args in CLI.items():
-        args = [a.format(tmp=tmp) for a in args]
-        if name != "help":
-            args = ["--input", path] + args
-        procs[name] = subprocess.Popen(
-            [sys.executable, "-m", "tdgl_tpu_torch.visualize"] + args,
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-    out = {}
-    for name, proc in procs.items():
-        stdout, stderr = proc.communicate(timeout=300)
-        out[name] = (proc.returncode, stdout, stderr)
+    commands = {name: ([] if name == "help" else ["--input", path])
+                + [a.format(tmp=tmp) for a in args]
+                for name, args in CLI.items()}
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_RUNNER, json.dumps(commands)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = {name: tuple(v) for name, v in
+           json.loads(proc.stdout.strip().splitlines()[-1]).items()}
     return tmp, path, out
 
 
