@@ -170,15 +170,29 @@ twice (bitwise equal).
     every block issues the whole op sequence on one card, so no speed is
     claimed); and an 8-member float64 field sweep over the mesh
     ``[cuda:0, cuda:0]`` (two blocks of 4 members, ``SHARD_SWEEP_STEPS``
-    steps) against the one-batch sweep (1e-9).
+    steps) against the one-batch sweep (1e-9). Screened (since the pencil
+    FFT, ``parallel/fft_sharded.py``): the film at ``bench.py:229-280``'s
+    screening settings in float64 at a fixed dt, ``SHARD_SCREEN_STEPS``
+    steps in 4 blocks against unsharded: psi and the induced potential
+    within 1e-8 relative and mu within 1e-7 (the screened step amplifies the
+    row blocks' reduction order to ~1e-10 in 10 steps), equal fixed-point
+    iterations and failovers, the pencil form engaged (``screening_eval_fn``
+    set in both programs, each block's spectrum shard ``cpad / 4`` bins) and
+    each kernel launched 4 times for each unsharded launch; then one
+    induced-potential evaluation in three forms (the pencil form over the
+    blocks, the gathered form, the unsharded FFT), each within 1e-12 of the
+    unsharded form, with device ms (CUDA events, ``SHARD_EVAL_CALLS``
+    calls), wall ms and the spectrum bytes each block holds, printed as one
+    JSON line (``{"sharded_screening": ...}``) before the card's name.
 
 Phases 6, 7, 9, 10, 12, 13, 14, 15 and 16 each reset the kernels' launch
 counters just before each of their runs and read them just after; each
 count must match the step slots that run executed (chunks times chunk
 size, robust re-runs included), or in phase 14 the fixed-point iterations
 of the batch; a sharded run of phase 16 launches each kernel once per
-block and step slot. The last two stdout lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Usage: ``python3 chip_smoke.py`` (one
+block and step slot (and fixed-point iteration, screened). The last two
+stdout lines are the kernels' JSON record and ``{"ok": true, "device":
+{...}}``. Usage: ``python3 chip_smoke.py`` (one
 GPU); ``--chunk`` and ``--solve-time`` resize phases 6 and 7,
 ``--ramp-time``/``--ramp-chunk`` phase 9, ``--screen-time``/
 ``--screen-chunk`` phase 10, ``--ell-time``/``--ell-chunk``/
@@ -2349,9 +2363,13 @@ def run_postprocessing_path(pkg, args, device, options, inputs, tmp):
 # Phase 16's depth: fixed-dt float64 steps of the sharded and unsharded
 # runs, steps per chunk of the float32 runs (2 chunks each), and steps of
 # the 8-member sweeps.
-SHARD_STEPS = 100
-SHARD_F32_CHUNK = 50
-SHARD_SWEEP_STEPS = 40
+SHARD_STEPS = 50
+SHARD_F32_CHUNK = 25
+SHARD_SWEEP_STEPS = 20
+# Fixed-dt float64 steps of the screened sharded and unsharded runs, and
+# calls per form of the timed induced-potential evaluation.
+SHARD_SCREEN_STEPS = 10
+SHARD_EVAL_CALLS = 50
 
 
 def run_sharded_path(pkg, device, inputs):
@@ -2484,6 +2502,9 @@ def run_sharded_path(pkg, device, inputs):
     for name, err in block_errs.items():
         assert err < F64_TOL, (name, err)
 
+    screened = run_sharded_screening(pkg, device, inputs, mesh, chunks,
+                                     runs)
+
     # float32, the default options (adaptive dt, the fast program and its
     # failover), sharded and unsharded.
     f32 = dict(solve_time=1e9, dt_init=1e-4, dt_max=1e-2,
@@ -2556,7 +2577,142 @@ def run_sharded_path(pkg, device, inputs):
     return dict(runs=runs, psi_err=float(psi_err), mu_err=float(mu_err),
                 block_errs=block_errs, volts=volts, sweep_err=sweep_err,
                 sweep_bitwise=bitwise, bounds=bounds,
-                amg_levels_sharded=amg_levels)
+                amg_levels_sharded=amg_levels, screened=screened)
+
+
+def run_sharded_screening(pkg, device, inputs, mesh, chunks, runs):
+    """Phase 16, screened: the film at ``bench.py:229-280``'s screening
+    settings (tolerance 1e-3, the exact FFT kernel, Anderson) in float64
+    at a fixed dt, in 4 row blocks with the pencil-decomposed FFT
+    (``parallel/fft_sharded.py``) against the unsharded solver; then one
+    induced-potential evaluation timed in three forms: the pencil form
+    over the blocks, the gathered form (the whole spectra on the first
+    device, which sharding used before the pencil form and still uses
+    where the rows do not divide) and the unsharded whole-grid FFT."""
+    import numpy as np
+    import torch
+
+    from tdgl_tpu_torch.ops import fft_screening as fs
+    from tdgl_tpu_torch.ops import rowblocks
+    from tdgl_tpu_torch.parallel import shard_solver_spatially
+
+    n_blocks = len(mesh.devices)
+    opts = dict(solve_time=1e9, dt_init=1e-4, adaptive=False,
+                save_every=SHARD_SCREEN_STEPS,
+                steps_per_chunk=SHARD_SCREEN_STEPS, dtype="float64",
+                field_units="mT", current_units="uA",
+                include_screening=True, screening_tolerance=1e-3,
+                screening_kernel="fft", screening_solver="anderson")
+    got, iters, solvers = {}, {}, {}
+    for key, shard in (("unsharded screened f64", False),
+                       ("sharded screened f64", True)):
+        solver = pkg.TDGLSolver(device, pkg.SolverOptions(**opts),
+                                torch_device="cuda", **inputs)
+        state = solver._initial_state()
+        if shard:
+            state = shard_solver_spatially(solver, mesh)(state)
+        _, outputs, exported = chunks(solver, state, 1, key)
+        got[key] = {k: v.cpu().numpy() for k, v in exported.items()}
+        iters[key] = int(outputs.screening_iterations.sum())
+        solvers[key] = solver
+    whole, pencil = (solvers["unsharded screened f64"],
+                     solvers["sharded screened f64"])
+    a, b = got["unsharded screened f64"], got["sharded screened f64"]
+    scale = np.abs(a["psi_real"]).max()
+    errs = {
+        "psi": float(max(np.abs(a[k] - b[k]).max() / scale
+                         for k in ("psi_real", "psi_imag"))),
+        "mu": float(np.abs(a["mu"] - b["mu"]).max()
+                    / np.abs(a["mu"]).max()),
+        "A_induced": float(np.abs(a["induced_vector_potential"]
+                                  - b["induced_vector_potential"]).max()
+                           / np.abs(a["induced_vector_potential"]).max()),
+    }
+    shards = pencil._screening[1].Ghat
+    Rp, Cp = pencil.maps.shape
+    cpad = -(-(Cp + 1) // n_blocks) * n_blocks
+    ra, rb = runs["unsharded screened f64"], runs["sharded screened f64"]
+    log(f"  screened float64, {SHARD_SCREEN_STEPS} fixed steps: sharded vs"
+        f" unsharded max rel diff psi {errs['psi']:.3e}, mu"
+        f" {errs['mu']:.3e}, A_induced {errs['A_induced']:.3e} (limits"
+        f" 1e-8, 1e-7, 1e-8); screening iterations"
+        f" {iters['unsharded screened f64']}"
+        f" and {iters['sharded screened f64']}; failovers"
+        f" {ra['failovers']} and {rb['failovers']}; wall {ra['seconds']:.2f}"
+        f" and {rb['seconds']:.2f} s; launches {ra['launches']} and"
+        f" {rb['launches']}")
+    assert pencil.cfg.screening_eval_fn is not None
+    assert pencil._fast_cfg.screening_eval_fn is not None
+    assert len(shards) == n_blocks
+    assert all(t.shape == (3, 2 * Rp, cpad // n_blocks) for t in shards)
+    assert not a["diagnostics"][5] and not b["diagnostics"][5]
+    assert rb["steps"] == ra["steps"] == SHARD_SCREEN_STEPS
+    assert iters["sharded screened f64"] == iters["unsharded screened f64"]
+    assert rb["failovers"] == ra["failovers"]
+    # The screened step amplifies the row blocks' reduction order: on an
+    # H100 the sharded run with the gathered FFT (the form before the
+    # pencil one) differs from the unsharded run after these 10 steps by
+    # the same psi 7.6e-13, mu 1.0e-10 and A_induced 6.4e-10 as the
+    # pencil form (the unscreened run above: ~2e-13 and ~2e-14), so the
+    # limits are the pins of tests/test_parallel.py's sharded screened
+    # parity (psi and A_induced 1e-8) and of the unsharded parity above
+    # (mu 1e-7).
+    assert errs["psi"] < 1e-8 and errs["A_induced"] < 1e-8, errs
+    assert errs["mu"] < 1e-7, errs
+    # Each kernel once per row block for each launch of the unsharded run
+    # (one per step slot and fixed-point iteration).
+    for name, n in ra["launches"].items():
+        assert n > 0 and rb["launches"][name] == n_blocks * n, (name, n)
+
+    # One induced-potential evaluation in three forms, on a seeded
+    # current: device ms (CUDA events, queued behind a device sleep, 5
+    # calls x 10) and wall ms (50 calls, one synchronisation).
+    rng = np.random.default_rng(16)
+    valid = np.asarray(whole.host_sten.valid)[..., None]
+    Jw = torch.tensor(rng.normal(size=valid.shape[:2] + (2,)) * valid,
+                      dtype=torch.float64, device="cuda")
+    layout = rowblocks.row_layout(Rp, mesh.devices)
+    Jb = rowblocks.split(Jw, layout, -3)
+    whole_data = whole._screening[1]
+    forms = {
+        "pencil": lambda: pencil.cfg.screening_eval_fn(
+            pencil._screening[1], pencil.sten, Jb),
+        "gathered": lambda: fs.induced_vector_potential_fft(
+            whole_data, pencil.sten, Jb),
+        "unsharded": lambda: fs.induced_vector_potential_fft(
+            whole_data, whole.sten, Jw),
+    }
+    ref = forms["unsharded"]()
+    spectrum_bytes = {
+        "pencil": shards[0].numel() * shards[0].element_size(),
+        "gathered": whole_data.Ghat.numel() * whole_data.Ghat.element_size(),
+    }
+    spectrum_bytes["unsharded"] = spectrum_bytes["gathered"]
+    cycles = sleep_cycles_per_ms()
+    evals = {}
+    for name, fn in forms.items():
+        out = rowblocks.gather(fn())
+        err = float((out - ref).abs().max() / ref.abs().max())
+        ms = queued_ms(fn, SHARD_EVAL_CALLS // 10, cycles, repeats=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_EVAL_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / SHARD_EVAL_CALLS
+        evals[name] = dict(device_ms=ms, wall_ms=wall_ms, rel_err=err,
+                           spectrum_bytes_per_block=spectrum_bytes[name])
+        log(f"  induced potential, {name} form: device {ms:.4f} ms, wall"
+            f" {wall_ms:.4f} ms per call, max rel diff from the unsharded"
+            f" form {err:.3e}, spectrum bytes held per block"
+            f" {spectrum_bytes[name]:,} (gathered and unsharded: all on"
+            f" the first device)")
+        assert err < F64_TOL, (name, err)
+    return dict(errs=errs, iterations=iters, cpad=cpad,
+                shard_bins=int(shards[0].shape[-1]), evals=evals,
+                launches={k: runs[k]["launches"] for k in
+                          ("unsharded screened f64",
+                           "sharded screened f64")})
 
 
 def main() -> int:
@@ -3124,6 +3280,9 @@ def main() -> int:
                                        screened_sweep.items()
                                        if k != "kernels"},
                     "post": post, "sharded": sharded}))
+    # Phase 16's screened run: parity, iterations and the three forms of
+    # one induced-potential evaluation.
+    print(json.dumps({"sharded_screening": sharded["screened"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,11 +33,15 @@ Where this package departs from the JAX one, with the same results:
   reads halo-extended blocks. Coarser levels and the dense coarsest
   inverse live on the first device: the restriction onto them gathers,
   and the prolongation back splits.
-* FFT screening gathers the weighted current onto the first device, runs
-  the exact convolution there with the whole spectra and splits the
-  potential back into blocks: the JAX package's replicated-spectra form.
-  Its pencil-decomposed FFT (``parallel/fft_sharded.py``) is not ported
-  yet, and sharding a screened solver logs that.
+* FFT screening runs as the JAX package's pencil decomposition
+  (:mod:`tdgl_tpu_torch.parallel.fft_sharded`) when the grid rows divide
+  over the devices: column FFTs per block, a transpose by ``.to()`` into
+  column pencils, row FFTs against each device's column shard of the
+  kernel spectra, and the way back; ``cfg.screening_eval_fn`` carries it
+  into the chunk, ahead of the site-evaluated form. Otherwise (logged, as
+  in the JAX package) the weighted current gathers onto the first
+  device, the exact convolution runs there with the whole spectra and
+  the potential splits back into blocks.
 """
 
 from __future__ import annotations
@@ -202,13 +206,27 @@ def shard_solver_spatially(solver, mesh: Optional[DeviceMesh] = None, *,
                                solver.amg.shapes, solver.amg.p_omega)
     if solver._screening is not None:
         weights, fft_data = solver._screening
+        eval_fn = None
         if fft_data is not None and layout is not None:
-            logger.warning(
-                "The pencil-decomposed FFT screening is not ported; the"
-                " convolution gathers the current onto %s and runs there"
-                " with replicated spectra.", first)
-        solver._screening = (place(weights),
-                             _tree_map(lambda t: t.to(first), fft_data))
+            from .fft_sharded import (make_sharded_fft_screening,
+                                      pad_fft_data_for_sharding)
+
+            eval_fn = make_sharded_fft_screening(mesh, Rp, Cp)
+            if eval_fn is None:
+                logger.warning(
+                    "Grid rows (%d) do not pencil-decompose over %d devices;"
+                    " FFT screening spectra will replicate.", Rp, n_dev)
+        if eval_fn is not None:
+            # The pencil form, set before the row chunks are built.
+            fft_data = pad_fft_data_for_sharding(fft_data, n_dev, mesh)
+            solver.cfg = dataclasses.replace(solver.cfg,
+                                             screening_eval_fn=eval_fn)
+            if getattr(solver, "_fast_cfg", None) is not None:
+                solver._fast_cfg = dataclasses.replace(
+                    solver._fast_cfg, screening_eval_fn=eval_fn)
+        else:
+            fft_data = _tree_map(lambda t: t.to(first), fft_data)
+        solver._screening = (place(weights), fft_data)
     if layout is not None:
         solver._raw_chunk_fn = _row_chunk_fn(solver, solver.cfg, place)
         if getattr(solver, "_fast_cfg", None) is not None:

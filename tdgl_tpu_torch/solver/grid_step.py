@@ -157,6 +157,10 @@ def make_grid_step_fn(cfg: StepConfig):
 
     def induced_potential(sten, fft_data, aux, Jw):
         if cfg.screening_use_fft:
+            if cfg.screening_eval_fn is not None:
+                # The pencil form of a row-sharded solve
+                # (parallel/fft_sharded.py), ahead of every other form.
+                return cfg.screening_eval_fn(fft_data, sten, Jw)
             from ..ops import fft_screening as fs
 
             if cfg.screening_site_eval:

@@ -4,7 +4,10 @@
 files so an installation can verify itself. :func:`periodic_stencil` is
 a fixture of the kernel checks, imported by the tests and by
 ``chip_smoke.py``; :func:`one_hierarchy_per_mesh` lets the tests build
-each mesh's multigrid hierarchy once. The solver uses neither.
+each mesh's multigrid hierarchy once, :class:`PerKey` lets a module
+fixture run each of its solves only where a test reads it, and
+:func:`session_file` lets the test files share a solve's output file.
+The solver uses none of them.
 """
 
 from __future__ import annotations
@@ -102,3 +105,38 @@ def one_hierarchy_per_mesh(*targets):
     finally:
         for module, name, original in reversed(saved):
             setattr(module, name, original)
+
+
+def session_file(tmp_path_factory, name: str, make) -> str:
+    """The path of ``name``, a file that ``make(path)`` writes once per
+    pytest session: every test module and pytest-xdist worker of the
+    session that asks for it gets the same file (a lock serialises the
+    first write), so a solve that a module fixture of several test files
+    needs runs once. The file lives in the session's temporary directory,
+    which the workers share."""
+    import fcntl
+
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    path = str(base / name)
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            make(path)
+    return path
+
+
+class PerKey(dict):
+    """A dict that makes a missing key's value with ``make(key)`` on first
+    use. A module fixture that returns one holds several independent
+    set-ups (each package's solve, each backend's runs), and a test file
+    pays only for the keys its tests read."""
+
+    def __init__(self, make):
+        super().__init__()
+        self._make = make
+
+    def __missing__(self, key):
+        self[key] = value = self._make(key)
+        return value

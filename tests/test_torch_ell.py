@@ -34,9 +34,13 @@ two probes. The same host-built inputs go through both packages:
 Past about 20 adaptive steps the adaptive dt of this small film oscillates
 (0.003 <-> 0.06) and amplifies rounding differences by ~10x per step in
 both packages alike, so the chunks stop at 20 steps.
+
+This module keeps 7 of the cases, and ``tests/test_torch_ell_*.py`` hold
+the others, 7 or fewer to a file, so that pytest-xdist's ``--dist
+loadfile`` queues each file behind the long JAX files (ROADMAP
+"Test-time budget"); they import this module's fixtures and helpers.
 """
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,13 +53,10 @@ import tdgl_tpu_torch as ttdgl
 from tdgl_tpu.fv.operators import build_operators as j_build_operators
 from tdgl_tpu.models import gtdgl as jg
 from tdgl_tpu.ops.amg import build_amg as j_build_amg
-from tdgl_tpu.ops.cg import solve_mu_poisson as j_solve_mu
-from tdgl_tpu.solver.solver import TDGLSolver as JaxSolver
 from tdgl_tpu_torch import convert
 from tdgl_tpu_torch.fv.operators import build_operators as t_build_operators
 from tdgl_tpu_torch.models import gtdgl as tg
 from tdgl_tpu_torch.ops.amg import build_amg as t_build_amg
-from tdgl_tpu_torch.ops.cg import solve_mu_poisson as t_solve_mu
 
 torch.set_num_threads(1)
 
@@ -169,11 +170,16 @@ def _pair(tables, name, *args):
             else jf(tables["jop"], *jargs)), tf(tables["top"], *targs)
 
 
-@pytest.mark.parametrize("name", [
+# The last three are the cases of ``test_gtdgl_function_matches_jax`` in
+# test_torch_ell_ops.py.
+GTDGL_FUNCTIONS = [
     "edge_link_phases", "covariant_laplacian", "scalar_laplacian_sym",
     "gradient_on_edges", "supercurrent_on_edges", "divergence_on_sites",
-    "neumann_boundary_term", "edge_quantity_to_sites", "poisson_rhs"])
-def test_gtdgl_function_matches_jax(tables, name):
+    "neumann_boundary_term", "edge_quantity_to_sites", "poisson_rhs"]
+
+
+def gtdgl_function_matches_jax(tables, name):
+    """``gtdgl.<name>`` equals the JAX package's on the same inputs."""
     x = tables["inputs"]
     n = len(x["mu"])
     jU = jg.edge_link_phases(jnp.asarray(x["A"]),
@@ -204,303 +210,6 @@ def test_gtdgl_function_matches_jax(tables, name):
         assert np.array_equal(got.numpy(), host)
 
 
-@pytest.mark.parametrize("dt", [1e-2, 40.0])
-def test_implicit_euler_psi_matches_jax(tables, dt):
-    """A passing and a failing (``ok`` False) time step."""
-    x = tables["inputs"]
-    n = len(x["mu"])
-    sq = np.sum(x["psi"] ** 2, axis=-1)
-    eps = np.ones(n)
-    U = np.asarray(jg.edge_link_phases(jnp.asarray(x["A"]),
-                                       tables["jop"].edge_directions))
-    ref = jax.jit(lambda *a: jg.implicit_euler_psi(
-        tables["jop"], *a, 0.5, 5.79, dt))(
-        *(jnp.asarray(a) for a in (U, x["psi"], sq, x["mu"], eps)))
-    got = tg.implicit_euler_psi(
-        tables["top"], *(torch.tensor(a) for a in (U, x["psi"], sq,
-                                                   x["mu"], eps)),
-        0.5, 5.79, torch.tensor(dt, dtype=torch.float64))
-    assert bool(got.ok) == bool(ref.ok) == (dt < 1)
-    assert _rel(got.psi, ref.psi) < 1e-13
-    assert _rel(got.abs_sq_psi, ref.abs_sq_psi) < 1e-13
-
-
-@pytest.mark.parametrize("precond", ["jacobi", "amg"])
-@pytest.mark.parametrize("form", ["stopped", "fixed", "topup"])
-def test_solve_mu_poisson_matches_jax(tables, precond, form):
-    x = tables["inputs"]
-    fixed_iters, topup = {"stopped": (None, False), "fixed": (3, False),
-                          "topup": (2, True)}[form]
-    amg = precond == "amg"
-    ref = jax.jit(lambda r, m: j_solve_mu(
-        tables["jop"], r, m, tol=1e-8, amg=tables["jamg"] if amg else None,
-        fixed_iters=fixed_iters, topup=topup))(
-        jnp.asarray(x["rhs"]), jnp.asarray(x["mu"]))
-    got = t_solve_mu(tables["top"], torch.from_numpy(x["rhs"]),
-                     torch.from_numpy(x["mu"]), tol=1e-8,
-                     amg=tables["tamg"] if amg else None,
-                     fixed_iters=fixed_iters, topup=topup)
-    assert int(got.iterations) == int(ref.iterations)
-    if precond == "jacobi" and form != "fixed":
-        # Jacobi-PCG stopped at 1e-8 takes ~100 iterations on this film,
-        # over which the packages' different reduction orders part x to
-        # ~1e-9; the final residual (a recurrence at the rounding scale)
-        # agrees to a few percent, and both meet the tolerance.
-        assert _rel(got.x, ref.x) < 1e-8
-        assert float(got.residual_norm) < 1e-8
-        assert float(ref.residual_norm) < 1e-8
-        assert abs(float(got.residual_norm) / float(ref.residual_norm)
-                   - 1.0) < 0.05
-    else:
-        assert _rel(got.x, ref.x) < 1e-13
-        assert abs(float(got.residual_norm) - float(ref.residual_norm)) \
-            <= 1e-10 * float(ref.residual_norm)
-
-
-class HostRamp:
-    """Terminal currents as a plain callable (the host path)."""
-
-    def __call__(self, t):
-        current = 3.0 * min(float(t) / 0.01, 1.0)
-        return {"source": current, "drain": -current}
-
-
-@ttdgl.jittable
-def _torch_ramp(t):
-    current = 3.0 * torch.clamp(t / 0.01, 0.0, 1.0)
-    return {"source": current, "drain": -current}
-
-
-@jtdgl.jittable
-def _jax_ramp(t):
-    current = 3.0 * jnp.clip(t / 0.01, 0.0, 1.0)
-    return {"source": current, "drain": -current}
-
-
-def _case(pkg, case):
-    """``(options, inputs)`` of one chunk case for ``pkg``."""
-    opts = dict(solve_time=1e9, dt_init=1e-3, save_every=20,
-                dtype="float64", field_units="mT", current_units="uA")
-    inputs = dict(applied_vector_potential=0.5, terminal_currents=CURRENTS)
-    if case == "retry":
-        # A first step far too large: the discriminant test rejects it
-        # and the dt shrinks until it passes.
-        opts.update(dt_init=0.5, dt_max=1.0, save_every=10)
-    elif case == "traced ramp":
-        inputs = dict(
-            applied_vector_potential=pkg.ConstantField(0.5)
-            * pkg.LinearRamp(tmin=0.0, tmax=0.01),
-            terminal_currents=_torch_ramp if pkg is ttdgl else _jax_ramp)
-    elif case == "host path":
-        opts.update(save_every=1)
-        inputs["terminal_currents"] = HostRamp()
-    elif case == "screened":
-        opts.update(dt_init=1e-4, adaptive=False, save_every=10,
-                    include_screening=True, screening_tolerance=1e-4,
-                    screening_error_norm="global")
-    return opts, inputs
-
-
-@pytest.mark.parametrize("case", ["static", "retry", "traced ramp",
-                                  "host path", "screened"])
-def test_ell_chunk_matches_jax(devices, case):
-    opts, jin = _case(jtdgl, case)
-    _, tin = _case(ttdgl, case)
-    js = JaxSolver(devices["jax"], jtdgl.SolverOptions(**opts), **jin)
-    ts = ttdgl.TDGLSolver(devices["torch"], ttdgl.SolverOptions(**opts),
-                          torch_device="cpu", **tin)
-    assert not ts.structured and ts.chunk_size == js.chunk_size
-    assert ts.cfg.amg_omega == js.cfg.amg_omega == 0.6
-    assert ts.cfg.screening_cg_iters == js.cfg.screening_cg_iters == 32
-    assert ts.cfg.poisson_fixed_iters is js.cfg.poisson_fixed_iters is None
-    jstate = js._initial_state()
-    tstate = convert.solver_state_to_torch(
-        jax.tree.map(np.asarray, jstate), "cpu")
-    outs = []
-    while int(jstate.step) < (10 if case in ("retry", "screened") else 20):
-        if case == "host path":
-            assert ts.host_dynamic and ts.chunk_size == 1
-            jstate = js._host_update(jstate)
-            tstate = ts._host_update(tstate)
-        jstate, jout, _ = js.chunk_fn(jstate)
-        tstate, tout, texp = ts.chunk_fn(tstate)
-        outs.append((jout, tout))
-    assert int(tstate.step) == int(jstate.step)
-    assert not bool(jstate.failed) and not bool(tstate.failed)
-    for name in ("psi", "mu", "supercurrent", "normal_current", "A_induced",
-                 "A_applied", "mu_boundary", "dpsi_window"):
-        assert _rel(getattr(tstate, name), getattr(jstate, name)) < 1e-10, \
-            name
-    # dA/dt is zero once the ramp ends, up to the JAX program's rounding
-    # (~1e-14): measured against the scale of A / dt.
-    scale = max(float(np.abs(np.asarray(jstate.A_applied)).max())
-                / float(jstate.prev_dt), 1e-300)
-    assert np.abs(tstate.dA_dt.numpy()
-                  - np.asarray(jstate.dA_dt)).max() < 1e-10 * scale
-    for field in ("cg_iterations", "screening_iterations", "valid"):
-        for jout, tout in outs:
-            assert getattr(tout, field).tolist() == \
-                np.asarray(getattr(jout, field)).tolist(), field
-    for name in ("dt", "mu_probe", "theta_probe"):
-        got = np.concatenate([getattr(t, name).numpy() for _, t in outs])
-        ref = np.concatenate([np.asarray(getattr(j, name)) for j, _ in outs])
-        assert _rel(got, ref) < 1e-10, name
-    dts = np.concatenate([np.asarray(j.dt) for j, _ in outs])
-    if case == "retry":
-        assert dts[0] < opts["dt_init"]
-    if case == "screened":
-        its = np.concatenate([np.asarray(j.screening_iterations)
-                              for j, _ in outs])
-        assert its.max() > 1
-        assert float(torch.abs(tstate.A_induced).max()) > 0
-    assert _rel(texp["psi_real"], np.asarray(jstate.psi)[:, 0]) < 1e-10
-
-
-def test_float32_chunk(devices):
-    """Float32, default options (adaptive dt, AMG, tolerance-stopped CG at
-    1e-4): 20 steps from the JAX initial state. Float32 rounding parts the
-    two packages' CG iterates at the 1e-4 stopping tolerance, so the
-    pins are those of the structured port's float32 test (psi 5e-4, mu
-    5e-3 relative), and the mean CG count agrees to 1 iteration."""
-    opts = dict(solve_time=1e9, dt_init=1e-3, save_every=20,
-                dtype="float32", field_units="mT", current_units="uA")
-    js = JaxSolver(devices["jax"], jtdgl.SolverOptions(**opts),
-                   applied_vector_potential=0.5, terminal_currents=CURRENTS)
-    ts = ttdgl.TDGLSolver(devices["torch"], ttdgl.SolverOptions(**opts),
-                          applied_vector_potential=0.5,
-                          terminal_currents=CURRENTS, torch_device="cpu")
-    jstate = js._initial_state()
-    tstate = convert.solver_state_to_torch(
-        jax.tree.map(np.asarray, jstate), "cpu")
-    jstate, jout, _ = js.chunk_fn(jstate)
-    tstate, tout, _ = ts.chunk_fn(tstate)
-    assert tstate.psi.dtype == torch.float32
-    assert int(tstate.step) == int(jstate.step) == 20
-    assert _rel(tstate.psi, jstate.psi) < 5e-4
-    assert _rel(tstate.mu, jstate.mu) < 5e-3
-    assert abs(float(tout.cg_iterations.float().mean())
-               - float(np.mean(jout.cg_iterations))) <= 1.0
-
-
-@pytest.fixture(scope="module")
-def solved(devices, tmp_path_factory):
-    """Both packages' ``solve()`` (float64, fixed dt, 61 steps, a
-    snapshot every 20)."""
-    out = {}
-    for name, pkg, kw in (("jax", jtdgl, {}),
-                          ("torch", ttdgl, {"torch_device": "cpu"})):
-        path = str(tmp_path_factory.mktemp(f"ell_{name}") / "out.h5")
-        out[name] = pkg.solve(
-            devices[name],
-            pkg.SolverOptions(solve_time=0.06, dt_init=1e-3, adaptive=False,
-                              save_every=20, dtype="float64",
-                              output_file=path, field_units="mT",
-                              current_units="uA"),
-            applied_vector_potential=0.5, terminal_currents=CURRENTS, **kw)
-    return out
-
-
-def test_solve_matches_jax(solved):
-    j, t = solved["jax"], solved["torch"]
-    assert t.data_range == j.data_range == (0, 4)
-    assert len(t.dynamics.dt) == len(j.dynamics.dt) == 61
-    for step in range(j.data_range[0], j.data_range[1] + 1):
-        j.solve_step = t.solve_step = step
-        assert t.tdgl_data.state["step"] == j.tdgl_data.state["step"]
-        for name in ("psi", "mu", "supercurrent", "normal_current"):
-            assert _rel(getattr(t.tdgl_data, name),
-                        getattr(j.tdgl_data, name)) < 1e-10, (step, name)
-    for name in ("dt", "mu", "theta"):
-        assert _rel(getattr(t.dynamics, name),
-                    getattr(j.dynamics, name)) < 1e-10, name
-    j.solve_step = t.solve_step = -1
-    # The port's file loads in the JAX package and in the port.
-    loaded = jtdgl.Solution.from_hdf5(t.path)
-    assert _rel(loaded.tdgl_data.psi, j.tdgl_data.psi) < 1e-10
-    assert ttdgl.Solution.from_hdf5(t.path).equals(t)
-
-
-def test_checkpoint_group_matches_jax(solved):
-    """The ``checkpoint`` group has the JAX file's datasets (same shapes
-    and dtypes) and attributes, ``backend`` ``"ell"``: the resume slice
-    reads both backends from it."""
-    groups = {}
-    for name in ("jax", "torch"):
-        with h5py.File(solved[name].path, "r") as f:
-            grp = f["checkpoint"]
-            groups[name] = (
-                {k: (grp[k].shape, grp[k].dtype) for k in grp},
-                {k: grp.attrs[k] for k in grp.attrs},
-                {k: np.asarray(grp[k]) for k in grp})
-    (jd, ja, jv), (td, ta, tv) = groups["jax"], groups["torch"]
-    assert td == jd
-    assert sorted(ta) == sorted(ja)
-    assert ta["backend"] == ja["backend"] == "ell"
-    assert ta["mesh_fingerprint"] == ja["mesh_fingerprint"]
-    assert ta["step"] == ja["step"]
-    for k in ("time", "prev_dt", "tentative_dt"):
-        assert abs(ta[k] - ja[k]) <= 1e-12 * abs(ja[k]), k
-    for k in ("psi", "mu", "mu_boundary", "A_applied"):
-        assert _rel(tv[k], jv[k]) < 1e-10, k
-
-
-def test_solver_state_converter_takes_export_dict(devices):
-    """``convert.solver_state_to_torch`` on the JAX chunk's
-    ``export_state_arrays`` dict (with a template for the fields an
-    export lacks) gives the same state as on the JAX ``SolverState``."""
-    opts = dict(solve_time=1e9, dt_init=1e-3, save_every=5,
-                dtype="float64", field_units="mT", current_units="uA")
-    js = JaxSolver(devices["jax"], jtdgl.SolverOptions(**opts),
-                   applied_vector_potential=0.5, terminal_currents=CURRENTS)
-    jstate, _, exported = js.chunk_fn(js._initial_state())
-    direct = convert.solver_state_to_torch(
-        jax.tree.map(np.asarray, jstate), "cpu")
-    with pytest.raises(ValueError, match="template"):
-        convert.solver_state_to_torch(exported, "cpu")
-    from_export = convert.solver_state_to_torch(
-        jax.tree.map(np.asarray, exported), "cpu", template=direct)
-    for name in direct._fields:
-        a, b = getattr(from_export, name), getattr(direct, name)
-        if name in ("time", "prev_dt", "tentative_dt"):
-            # The export's diagnostics are float32.
-            assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b)), name
-        else:
-            assert torch.equal(a, b), name
-    assert int(from_export.step) == 5 and from_export.psi.shape[-1] == 2
-
-
-def test_resume_and_seed_from_jax_file(solved, tmp_path):
-    """Both packages' files of ``solved`` resumed by the port 20 fixed
-    steps on agree to 1e-10 with equal steps; the JAX file loads in the
-    port with the JAX package's fields and seeds a port run."""
-    device = solved["torch"].device
-    kw = dict(applied_vector_potential=0.5, terminal_currents=CURRENTS,
-              torch_device="cpu")
-
-    def options(solve_time, name):
-        return ttdgl.SolverOptions(
-            solve_time=solve_time, dt_init=1e-3, adaptive=False,
-            save_every=20, dtype="float64",
-            output_file=str(tmp_path / name), field_units="mT",
-            current_units="uA")
-
-    out = {name: ttdgl.solve(device, options(0.08, f"{name}.h5"),
-                             resume_from=solved[name].path, **kw)
-           for name in ("jax", "torch")}
-    j, t = out["jax"], out["torch"]
-    assert j.tdgl_data.state["step"] == t.tdgl_data.state["step"] == 81
-    for name in ("psi", "mu", "supercurrent", "normal_current"):
-        assert _rel(getattr(j.tdgl_data, name),
-                    getattr(t.tdgl_data, name)) < 1e-10, name
-    ours = ttdgl.Solution.from_hdf5(solved["jax"].path)
-    theirs = jtdgl.Solution.from_hdf5(solved["jax"].path)
-    for name in ("psi", "mu", "supercurrent", "normal_current",
-                 "induced_vector_potential", "applied_vector_potential",
-                 "epsilon"):
-        assert np.array_equal(getattr(ours.tdgl_data, name),
-                              getattr(theirs.tdgl_data, name)), name
-    assert ours.tdgl_data.state["time"] == theirs.tdgl_data.state["time"]
-    seeded = ttdgl.solve(device, options(0.002, "seeded.h5"),
-                         seed_solution=ours, **kw)
-    seeded.solve_step = 0
-    assert np.array_equal(seeded.tdgl_data.psi, theirs.tdgl_data.psi)
+@pytest.mark.parametrize("name", GTDGL_FUNCTIONS[:6])
+def test_gtdgl_function_matches_jax(tables, name):
+    gtdgl_function_matches_jax(tables, name)

@@ -36,9 +36,14 @@ CPU, in one process.
   single-member results, member by member.
 * (e) The JAX package's batched screened state, with its per-member
   ``A_induced``, converts into the port's on both backends.
+
+This module keeps 6 of the cases, and
+``tests/test_torch_screened_sweep_*.py`` hold the others, 7 or fewer to
+a file, so that pytest-xdist's ``--dist loadfile`` queues each file
+behind the long JAX files (ROADMAP "Test-time budget"); they import this
+module's fixtures and helpers.
 """
 
-import dataclasses
 
 import h5py
 import jax
@@ -51,7 +56,6 @@ import tdgl_tpu as jtdgl
 import tdgl_tpu_torch as ttdgl
 from tdgl_tpu.parallel import sweep as jsweep
 from tdgl_tpu_torch import convert
-from tdgl_tpu_torch.models import gtdgl
 from tdgl_tpu_torch.ops import fft_screening as fs
 from tdgl_tpu_torch.ops.screening import induced_vector_potential
 from tdgl_tpu_torch.parallel import sweep as tsweep
@@ -290,74 +294,6 @@ def test_ghost_steps_run_no_fixed_point_iteration(sweeps, film):
     assert slot_max[12] == cap + 1 and per_step[12] == cap + 1
 
 
-def _sweep_chunk(solver, state):
-    if solver.structured:
-        return solver._raw_chunk_fn(solver.sten, solver.amg, state,
-                                    solver._screening)
-    return solver._raw_chunk_fn(solver.op, solver._screening, solver.amg,
-                                state)
-
-
-@pytest.mark.parametrize("case", ["ell", "fft", "fft site", "xla"])
-def test_screened_batched_chunk_equals_single_chunks(case):
-    """(b) One 12-step screened chunk of a 3-member field batch against 3
-    single robust chunks, each started from its member's scaled applied
-    potential (150, 300 and 600 uT), whose fixed points take different
-    iteration counts. The chunk ends before the dt jump at step 12 (index
-    12), whose fixed-point burst (~100 iterations) grows the batch's
-    rounding-order differences (the multigrid's and AMG's coarse solve is
-    one matmul for the batch and a matvec alone) past 1e-12 by step 20 on
-    ELL, with equal iteration counts throughout. The two psi components
-    are held on the scale of ``|psi|``. The structured ``"xla"`` case sums
-    over every padded-grid site pair, so it runs 1 step."""
-    extra = {"fft site": dict(screening_site_eval=True),
-             "xla": dict(screening_kernel="xla")}.get(case, {})
-    film = _bridge if case == "ell" else _box
-    solver = ttdgl.TDGLSolver(
-        film(ttdgl), _options(ttdgl, save_every=1 if case == "xla" else 12,
-                              **extra),
-        applied_vector_potential=300.0, torch_device="cpu")
-    assert solver.structured == (case != "ell")
-    assert solver.cfg.screening_use_fft == case.startswith("fft")
-    assert solver.cfg.screening_site_eval == (case == "fft site")
-    base = solver._initial_state()
-    s = torch.tensor(SCALES, dtype=torch.float64)
-    A = base.A_applied[None] * s.reshape((3,) + (1,) * base.A_applied.dim())
-    per_member = ("psi_r", "psi_i", "psi", "mu", "mu_prev", "supercurrent",
-                  "normal_current", "A_induced", "dpsi_window")
-    batch = tsweep._member_axis(base, 3, per_member, {"A_applied": A})
-    b_state, b_out, _ = _sweep_chunk(solver, batch)
-    its = b_out.screening_iterations
-    assert bool((its != its[:1]).any()), its
-    for m in range(3):
-        state, out, _ = _sweep_chunk(solver, base._replace(A_applied=A[m]))
-        psi = (torch.sqrt(state.psi_r**2 + state.psi_i**2) if
-               solver.structured else state.psi)
-        for name in state._fields:
-            ref = getattr(state, name)
-            got = getattr(b_state, name)
-            got = got[m] if got.dim() > ref.dim() else got
-            if not ref.is_floating_point():
-                assert torch.equal(got, ref), (m, name)
-                continue
-            scale = (1.0 if name == "dpsi_window"
-                     else float(psi.abs().max()) if name.startswith("psi")
-                     else max(float(ref.abs().max()), 1e-300))
-            assert float((got - ref).abs().max()) <= 1e-12 * scale, (
-                m, name)
-        scales = dict(mu_probe=float(state.mu.abs().max()),
-                      theta_probe=1.0)
-        for name in out._fields:
-            ref = getattr(out, name)
-            got = getattr(b_out, name)[m]
-            if not ref.is_floating_point():
-                assert torch.equal(got, ref), (m, name)
-                continue
-            scale = scales.get(name, float(ref.abs().max()))
-            assert float((got - ref).abs().max()) <= 1e-12 * scale, (
-                m, name)
-
-
 LAYOUTS = {"grid": (3, 4, 8), "ell": (40,)}
 
 
@@ -375,96 +311,6 @@ def box_solver():
     return ttdgl.TDGLSolver(_box(ttdgl), _options(ttdgl),
                             applied_vector_potential=100.0,
                             torch_device="cpu")
-
-
-@pytest.mark.parametrize("norm", ["global", "per_edge"])
-@pytest.mark.parametrize("layout", list(LAYOUTS))
-def test_screening_error_is_per_member(box_solver, layout, norm):
-    """(d) ``screening_error`` (with each member's applied-potential scale)
-    of a batch equals each member's own."""
-    c = dataclasses.replace(box_solver.cfg, screening_global_error_norm=(
-        norm == "global"))
-    nd = len(LAYOUTS[layout]) + 1
-    dA, A, A_app, _ = _fields(layout, 1)
-    app = tstep.vector_scale(A_app, nd)
-    assert app.shape == (3,)
-    err = tstep.screening_error(c, dA, A, app, nd)
-    assert err.shape == (3,)
-    for m in range(3):
-        one = tstep.screening_error(c, dA[m], A[m], tstep.vector_scale(
-            A_app[m], nd), nd)
-        assert one.dim() == 0
-        assert float(abs(err[m] - one)) <= 1e-15 * float(one)
-
-
-@pytest.mark.parametrize("solver", ["anderson", "polyak"])
-@pytest.mark.parametrize("layout", list(LAYOUTS))
-def test_induced_potential_update_is_per_member(box_solver, layout,
-                                                solver):
-    """(d) The fixed point's update of a batch (Anderson's secant
-    coefficient from per-member sums; Polyak's heavy ball) equals each
-    member's own, at the first and a later iteration."""
-    c = dataclasses.replace(box_solver.cfg, screening_anderson=(
-        solver == "anderson"))
-    nd = len(LAYOUTS[layout]) + 1
-    A, A_new, velocity, x_prev = _fields(layout, 2)
-    for s in (0, 3):
-        got = tstep.induced_potential_update(c, s, A, A_new, velocity,
-                                             x_prev, nd)
-        for m in range(3):
-            one = tstep.induced_potential_update(c, s, A[m], A_new[m],
-                                                 velocity[m], x_prev[m], nd)
-            for g, r in zip(got, one):
-                scale = max(float(r.abs().max()), 1e-300)
-                assert float((g[m] - r).abs().max()) <= 1e-14 * scale
-
-
-@pytest.mark.parametrize("kernel", ["pairwise", "fft", "fft site"])
-def test_batched_induced_potential_equals_members(box_solver, kernel):
-    """(d) One batched evaluation of the induced potential (three members
-    of weighted site currents, zero at masked sites) equals each member's
-    single evaluation."""
-    sten = box_solver.sten
-    weights, fft_data = box_solver._screening
-    rng = np.random.default_rng(3)
-    valid = sten.valid.to(torch.float64)[..., None]
-    Jw = torch.tensor(rng.normal(size=(3,) + tuple(valid.shape[:2]) + (2,)),
-                      dtype=torch.float64) * valid * weights[..., None]
-    if kernel == "pairwise":
-        ec = torch.stack([sten.ec_x, sten.ec_y], dim=-1).reshape(-1, 2)
-        xy = torch.stack([sten.site_x, sten.site_y], dim=-1).reshape(-1, 2)
-
-        def evaluate(J):
-            return induced_vector_potential(ec, xy, J.reshape(
-                J.shape[:-3] + (-1, 2)), block_size=100)
-    elif kernel == "fft":
-        def evaluate(J):
-            return fs.induced_vector_potential_fft(fft_data, sten, J)
-    else:
-        def evaluate(J):
-            return fs.induced_vector_potential_fft_site(
-                fft_data, sten, J, box_solver._site_taps)
-    got = evaluate(Jw)
-    for m in range(3):
-        ref = evaluate(Jw[m])
-        assert got.shape == (3,) + ref.shape
-        assert float((got[m] - ref).abs().max()) <= 1e-13 * float(
-            ref.abs().max())
-
-
-def test_ell_edge_average_is_per_member():
-    """(d) ``gtdgl.edge_quantity_to_sites`` of a ``(B, E)`` batch equals
-    each member's ``(E,)`` average, bit for bit."""
-    solver = ttdgl.TDGLSolver(_bridge(ttdgl), _options(
-        ttdgl, include_screening=False), torch_device="cpu")
-    op = solver.op
-    n = op.areas.shape[0]
-    F = torch.tensor(np.random.default_rng(4).normal(
-        size=(3, op.edges.shape[0])))
-    got = gtdgl.edge_quantity_to_sites(op, F, n)
-    assert got.shape == (3, n, 2)
-    for m in range(3):
-        assert torch.equal(got[m], gtdgl.edge_quantity_to_sites(op, F[m], n))
 
 
 @pytest.mark.parametrize("film", list(FILMS))

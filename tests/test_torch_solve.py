@@ -31,13 +31,15 @@ standard output files:
   and, in a process where jax, tdgl_tpu, h5py and cloudpickle cannot be
   imported, the file loads and seeds a port ``solve()`` without importing
   ``tdgl_tpu``.
+
+This module keeps 7 of the cases, and ``tests/test_torch_solve_*.py``
+hold the others, 7 or fewer to a file, so that pytest-xdist's ``--dist
+loadfile`` queues each file behind the long JAX files (ROADMAP
+"Test-time budget"); they import this module's fixtures and helpers.
 """
 
 import dataclasses
 import os
-import subprocess
-import sys
-import textwrap
 
 import h5py
 import numpy as np
@@ -47,11 +49,11 @@ from threadpoolctl import threadpool_limits
 
 import tdgl_tpu as jtdgl
 import tdgl_tpu_torch as ttdgl
+from tdgl_tpu_torch import testing
 from tdgl_tpu_torch.solution.tri_interp import LinearTriInterpolator
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CURRENTS = dict(source=5.0, drain=-5.0)
 
 
@@ -108,19 +110,22 @@ def _solver_pair(tmp_path_factory, tag, **options):
 
 @pytest.fixture(scope="module")
 def f64_pair(tmp_path_factory):
-    """(a): the facades ``tdgl_tpu.solve`` and ``tdgl_tpu_torch.solve``."""
-    out = {}
-    for name, pkg, kw in (("jax", jtdgl, {}),
-                          ("torch", ttdgl, {"torch_device": "cpu"})):
+    """(a): the facades ``tdgl_tpu.solve`` and ``tdgl_tpu_torch.solve``;
+    each package's solve runs where a test of the file reads it
+    (``testing.PerKey``)."""
+    def solve(name):
+        pkg, kw = {"jax": (jtdgl, {}),
+                   "torch": (ttdgl, {"torch_device": "cpu"})}[name]
         path = str(tmp_path_factory.mktemp(f"f64_{name}") / "out.h5")
-        out[name] = pkg.solve(
+        return pkg.solve(
             _transport_device(pkg),
             pkg.SolverOptions(solve_time=0.1, dt_init=1e-3, adaptive=False,
                               save_every=25, dtype="float64",
                               output_file=path, field_units="mT",
                               current_units="uA"),
             applied_vector_potential=0.5, terminal_currents=CURRENTS, **kw)
-    return out
+
+    return testing.PerKey(solve)
 
 
 @pytest.fixture(scope="module")
@@ -292,203 +297,6 @@ def test_linear_interpolation_matches_matplotlib(f64_pair):
     assert np.abs(ours[inside] - ref.data[inside]).max() < 1e-12
 
 
-# -- (d) the failover gate tests through the port's solve() ------------------
-def _fo_device():
-    layer = ttdgl.Layer(coherence_length=0.5, london_lambda=2,
-                        thickness=0.05, conductivity=10.0)
-    film = ttdgl.Polygon("film", points=ttdgl.box(8)).resample(200)
-    device = ttdgl.Device("fo", layer=layer, film=film)
-    device.make_mesh(structured=True, max_edge_length=0.25)
-    return device
-
-
-@pytest.fixture(scope="module")
-def fo_solves():
-    device = _fo_device()
-    # The four solvers share the device and so its multigrid hierarchy
-    # (its coarsest level is a 2048 x 2048 pseudo-inverse, and the build
-    # reads the mesh, not the stencil's dtype): the module's
-    # one_hierarchy_per_mesh builds it once.
-    out = {}
-    for dtype in ("float64", "float32"):
-        for failover in ("auto", "off"):
-            options = ttdgl.SolverOptions(
-                solve_time=0.3, dt_init=1e-5, save_every=20,
-                output_file=None, dtype=dtype, chunk_failover=failover)
-            solver = ttdgl.TDGLSolver(device, options,
-                                      applied_vector_potential=0.4,
-                                      torch_device="cpu")
-            out[dtype, failover] = (solver, solver.solve())
-    return out
-
-
-def test_failover_f64_bitwise_vs_robust(fo_solves):
-    (s_fast, sol_fast) = fo_solves["float64", "auto"]
-    (s_rob, sol_rob) = fo_solves["float64", "off"]
-    assert hasattr(s_fast, "_fast_chunk_fn")
-    assert not hasattr(s_rob, "_fast_chunk_fn")
-    assert s_fast._failover_count >= 1
-    a, b = sol_fast.tdgl_data, sol_rob.tdgl_data
-    assert np.array_equal(a.psi, b.psi)
-    assert np.array_equal(a.mu, b.mu)
-
-
-def test_failover_f32_cold_start_fires_then_fast(fo_solves):
-    (s_fast, sol_fast) = fo_solves["float32", "auto"]
-    (s_rob, sol_rob) = fo_solves["float32", "off"]
-    # The cold-start chunk fails over; the steady chunks must not.
-    assert sol_fast.data_range[1] >= 2
-    assert 1 <= s_fast._failover_count <= 3
-    a = np.abs(sol_fast.tdgl_data.psi)
-    b = np.abs(sol_rob.tdgl_data.psi)
-    assert float(np.max(np.abs(a - b))) < 1e-3
-
-
-def test_fast_chunk_accepts_only_gated_steps(fo_solves):
-    s, _ = fo_solves["float32", "auto"]
-    state = s._initial_state()._replace(end_time=torch.tensor(1e9))
-    for _ in range(3):
-        state, _, _ = s.chunk_fn(state)
-    _, outputs, exported = s._fast_chunk_fn(s.sten, s.amg, state)
-    assert not bool(exported["diagnostics"][5])
-    assert int(outputs.valid.sum()) == s.chunk_size
-
-
-def test_fast_cfg_gate_value(fo_solves):
-    # Unscreened auto float32: the fast program runs the gated fixed-1 mu
-    # solve with the 1e-2 fail gate; the robust program keeps fixed-2 and
-    # the top-up. An explicit tolerance opts out of the fixed-1 override.
-    s, _ = fo_solves["float32", "auto"]
-    assert s._fast_cfg.fast_chunk
-    assert s._fast_cfg.poisson_fixed_iters == 1
-    assert s.cfg.poisson_fixed_iters == 2
-    assert s._fast_cfg.poisson_fail_gate == pytest.approx(1e-2)
-    s2 = ttdgl.TDGLSolver(_transport_device(ttdgl), dataclasses.replace(
-        s.options, poisson_tolerance=1e-4), applied_vector_potential=0.4,
-        torch_device="cpu")
-    assert s2._fast_cfg.poisson_fixed_iters == 2
-    assert s2._fast_cfg.poisson_fail_gate == pytest.approx(
-        10.0 * s2.cfg.poisson_tolerance)
-
-
-# -- (e) no h5py, cloudpickle, tqdm, matplotlib, jax or tdgl_tpu ---------------
-# One process for (e) and the seed of (f): each part prints "ok <part>"
-# or its traceback.
-_NO_JAX_PROCESS = textwrap.dedent("""
-    import sys
-    import traceback
-    for name in ("h5py", "cloudpickle", "tqdm", "matplotlib", "jax",
-                 "tdgl_tpu"):
-        sys.modules[name] = None
-    import numpy as np
-    import torch
-    torch.set_num_threads(1)
-    import tdgl_tpu_torch as ttdgl
-
-
-    def solve_without_extras(out):
-        layer = ttdgl.Layer(coherence_length=1.0, london_lambda=2.0,
-                            thickness=0.1, conductivity=10.0)
-        film = ttdgl.Polygon("film", points=ttdgl.box(10)).resample(100)
-        source = ttdgl.Polygon("source",
-                               points=ttdgl.box(1, 4, center=(-5, 0)))
-        drain = ttdgl.Polygon("drain", points=ttdgl.box(1, 4, center=(5, 0)))
-        device = ttdgl.Device("box", layer=layer, film=film,
-                              terminals=[source, drain],
-                              probe_points=[(-2, 0), (2, 0)],
-                              length_units="um")
-        device.make_mesh(min_points=400, structured=True)
-        options = ttdgl.SolverOptions(solve_time=0.02, skip_time=0.01,
-                                      dt_init=1e-3, save_every=10,
-                                      output_file=out,
-                                      field_units="mT", current_units="uA")
-        kw = dict(applied_vector_potential=0.5,
-                  terminal_currents=dict(source=2.0, drain=-2.0),
-                  torch_device="cpu")
-        solution = ttdgl.solve(device, options, **kw)
-        assert ttdgl.Solution.from_hdf5(solution.path).equals(solution)
-        # Thermalization (skip_time) ran first; the clock restarted at 0.
-        assert solution.tdgl_data.state["step"] == len(solution.dynamics.dt)
-        assert np.isfinite(solution.magnetic_moment(with_units=False))
-        assert solution.hole_fluxoid is not None
-        try:
-            ttdgl.solve(device, options, disorder_epsilon=lambda r: 1.0,
-                        **kw)
-        except ValueError as exc:
-            assert "disorder_epsilon" in str(exc), exc
-        else:
-            raise AssertionError("a lambda pickled without cloudpickle")
-        missing = [m for m in ("h5py", "cloudpickle", "tqdm", "matplotlib",
-                               "jax", "tdgl_tpu") if sys.modules.get(m)]
-        assert not missing, missing
-        return solution.data_range
-
-
-    def seed_from_jax_file(path, out):
-        seed = ttdgl.Solution.from_hdf5(path)
-        assert seed.data_range == (0, 5), seed.data_range
-        assert seed.terminal_currents == {"source": 5.0, "drain": -5.0}
-        assert isinstance(seed.applied_vector_potential, ttdgl.Parameter)
-        # The JAX package stored its uniform disorder by value with
-        # cloudpickle, which this process lacks: reading it raises, the
-        # rest loads.
-        try:
-            seed.disorder_epsilon
-        except RuntimeError as exc:
-            assert "cloudpickle" in str(exc), exc
-        else:
-            raise AssertionError("a cloudpickle stream loaded without it")
-        options = ttdgl.SolverOptions(solve_time=0.005, dt_init=1e-3,
-                                      adaptive=False, save_every=5,
-                                      dtype="float64", output_file=out,
-                                      field_units="mT", current_units="uA")
-        solution = ttdgl.solve(seed.device, options,
-                               applied_vector_potential=0.5,
-                               terminal_currents=seed.terminal_currents,
-                               seed_solution=seed, torch_device="cpu")
-        solution.solve_step = 0
-        assert np.array_equal(solution.tdgl_data.psi, seed.tdgl_data.psi)
-        assert ("tdgl_tpu" not in sys.modules
-                or sys.modules["tdgl_tpu"] is None)
-        loaded = [m for m in sys.modules if m.startswith("tdgl_tpu.")]
-        assert not loaded, loaded
-        return solution.data_range
-
-
-    for part, run, args in (
-            ("no extras", solve_without_extras, sys.argv[1:2]),
-            ("jax file seed", seed_from_jax_file, sys.argv[2:4])):
-        try:
-            print("ok", part, run(*args))
-        except BaseException:
-            print("failed", part)
-            traceback.print_exc()
-""")
-
-
-@pytest.fixture(scope="module")
-def no_jax_process(f64_pair, tmp_path_factory):
-    """(e) and the seed of (f) in one process where h5py, cloudpickle,
-    tqdm, matplotlib, jax and tdgl_tpu cannot be imported."""
-    tmp = tmp_path_factory.mktemp("no_jax")
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
-               OPENBLAS_NUM_THREADS="1")
-    result = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_PROCESS, str(tmp / "out.h5"),
-         f64_pair["jax"].path, str(tmp / "seeded.h5")],
-        cwd=str(tmp), env=env, capture_output=True, text=True, timeout=300)
-    assert result.returncode == 0, result.stderr[-3000:]
-    return result
-
-
-def _part_ok(result, part):
-    assert f"ok {part}" in result.stdout, (result.stdout,
-                                           result.stderr[-3000:])
-
-def test_solve_without_optional_packages(no_jax_process):
-    _part_ok(no_jax_process, "no extras")
-
-
 # -- (f) the JAX package's output file in the port ---------------------------
 def _tdgl_fields(data):
     return {f: np.asarray(getattr(data, f))
@@ -551,7 +359,3 @@ def test_resume_from_jax_checkpoint(f64_pair, tmp_path):
     for name in ("dt", "mu", "theta"):
         assert _rel(getattr(j.dynamics, name),
                     getattr(t.dynamics, name)) < 1e-10, name
-
-
-def test_jax_file_seeds_without_jax(no_jax_process):
-    _part_ok(no_jax_process, "jax file seed")

@@ -25,9 +25,13 @@ builds one film's multigrid hierarchy once (a module fixture).
   (only the order of the reductions' partial sums differs; about 3e-13
   observed), and against the JAX unsharded chunk to that test's pins
   (psi 1e-9, mu 1e-7).
-* Screening (the FFT convolution, gathered onto the first device), 2
-  steps (51 fixed-point iterations) over 2 row blocks of a 300-point film (a 32-row grid): psi and
-  the induced potential against the unsharded run to 1e-8.
+* Screening (the FFT convolution as the pencil decomposition of
+  ``parallel/fft_sharded.py``: engaged, with each block's spectrum shard
+  ``cpad / 2`` bins), 2 steps (51 fixed-point iterations) over 2 row
+  blocks of a 300-point film (a 32-row grid): psi and the induced
+  potential against the port's unsharded run and against the JAX
+  package's sharded chunk on 2 devices to 1e-8 (the pins of
+  ``tests/test_parallel.py``).
 * Terminals, adaptive dt, float32 (the default fast program with its
   failover), 2 chunks of 20 steps over 2 row blocks, on the bridge of
   ``test_parallel.py`` meshed with 1,281 points instead of 2,672 (a
@@ -246,14 +250,32 @@ def test_screened_parity():
                                             applied_vector_potential=0.3)
     assert solver.maps.shape[0] == 32
     assert isinstance(st.A_induced, RowBlocks)
+    # The pencil form engaged: both programs evaluate through it, and each
+    # block's device holds cpad / 2 bins of the spectra.
+    assert solver.cfg.screening_eval_fn is not None
+    assert solver._fast_cfg.screening_eval_fn is solver.cfg.screening_eval_fn
+    Cp = solver.maps.shape[1]
+    cpad = -(-(Cp + 1) // 2) * 2
+    shards = solver._screening[1].Ghat
+    assert [tuple(t.shape) for t in shards] == [(3, 64, cpad // 2)] * 2
     assert int(b["diagnostics"][3]) == 2 and not b["diagnostics"][5]
-    scale = np.abs(a["psi_real"]).max()
-    assert np.abs(a["psi_real"] - b["psi_real"]).max() / scale < 1e-8
-    assert np.abs(a["psi_imag"] - b["psi_imag"]).max() / scale < 1e-8
     A_a = a["induced_vector_potential"]
-    A_b = b["induced_vector_potential"]
     assert np.abs(A_a).max() > 0
-    assert _rel(A_b, A_a) < 1e-8
+
+    jsolver = JaxSolver(_film(jtdgl, side=8, min_points=300),
+                        jtdgl.SolverOptions(**options),
+                        applied_vector_potential=0.3)
+    place = jspatial.shard_solver_spatially(
+        jsolver, jspatial.spatial_device_mesh(jax.devices()[:2]))
+    assert jsolver.cfg.screening_eval_fn is not None
+    _, _, jexp = jsolver.chunk_fn(place(jsolver._initial_state()))
+    j = jax.tree.map(np.asarray, jexp)
+    for ref in (a, j):
+        scale = np.abs(ref["psi_real"]).max()
+        assert np.abs(ref["psi_real"] - b["psi_real"]).max() / scale < 1e-8
+        assert np.abs(ref["psi_imag"] - b["psi_imag"]).max() / scale < 1e-8
+        assert _rel(b["induced_vector_potential"],
+                    ref["induced_vector_potential"]) < 1e-8
 
 
 def test_terminals_adaptive_float32():

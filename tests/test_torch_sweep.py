@@ -29,6 +29,11 @@
   and a ``mesh`` that is neither a ``DeviceMesh`` nor a device list
   (``tests/test_torch_spatial.py`` runs a sweep over a device list).
   Screened sweeps run: see ``tests/test_torch_screened_sweep.py``.
+
+This module keeps 7 of the cases, and ``tests/test_torch_sweep_*.py``
+hold the others, 7 or fewer to a file, so that pytest-xdist's ``--dist
+loadfile`` queues each file behind the long JAX files (ROADMAP
+"Test-time budget"); they import this module's fixtures and helpers.
 """
 
 import h5py
@@ -41,6 +46,7 @@ import tdgl_tpu as jtdgl
 import tdgl_tpu_torch as ttdgl
 from tdgl_tpu.parallel import sweep as jsweep
 from tdgl_tpu_torch.parallel import sweep as tsweep
+
 
 torch.set_num_threads(1)
 
@@ -145,23 +151,15 @@ def field_pair(tmp_path_factory):
             for name, pkg in (("jax", jtdgl), ("torch", ttdgl))}
 
 
-@pytest.fixture(scope="module")
-def current_pair(tmp_path_factory):
-    """(a) The ELL callable-bias current sweep in both packages."""
-    return {name: _run(pkg, _bridge(pkg), "current",
-                       tmp_path_factory.mktemp(f"current_{name}"))
-            for name, pkg in (("jax", jtdgl), ("torch", ttdgl))}
-
-
 def _rel(got, ref):
     got, ref = np.asarray(got), np.asarray(ref)
     assert got.shape == ref.shape
     return np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300)
 
 
-@pytest.mark.parametrize("pair", ["field_pair", "current_pair"])
-def test_sweep_matches_jax(pair, request):
-    (j, j_out), (t, t_out) = request.getfixturevalue(pair).values()
+def sweep_matches_jax(pair):
+    """(a) The port's sweep of a fixture pair against the JAX package's."""
+    (j, j_out), (t, t_out) = pair.values()
     np.testing.assert_array_equal(t.values, j.values)
     np.testing.assert_array_equal(t.steps, j.steps)
     np.testing.assert_array_equal(t.failed, j.failed)
@@ -188,81 +186,11 @@ def test_sweep_matches_jax(pair, request):
                                rtol=1e-10, atol=1e-14)
 
 
-@pytest.mark.parametrize("backend", ["grid", "grid traced A", "ell"])
-def test_batched_chunk_equals_single_chunks(backend):
-    """(b) One 20-step chunk of a 3-member batch against 3 single robust
-    chunks, each started from its member's input: the scaled applied
-    potential (grid), the scaled boundary currents (ELL), or, with a
-    traced ramp of the applied potential, its own start time (each member
-    evaluates A(t) at its own time). (The batch sums its dot products per
-    member and does one matmul for all members' coarse solves where a
-    single run does a matvec: rounding-order differences that grow, on the
-    grid at the largest dt, to ~3e-12 by step 37.)"""
-    if backend == "grid":
-        solver = ttdgl.TDGLSolver(
-            _box(ttdgl), _options(ttdgl, save_every=20),
-            applied_vector_potential=100.0, torch_device="cpu")
-        field = "A_applied"
-    elif backend == "grid traced A":
-        ramp = (ttdgl.ConstantField(300.0, field_units="uT")
-                * ttdgl.LinearRamp(tmin=0, tmax=0.05))
-        solver = ttdgl.TDGLSolver(
-            _box(ttdgl), _options(ttdgl, save_every=20),
-            applied_vector_potential=ramp, torch_device="cpu")
-        assert solver.cfg.A_fn is not None
-        field = "time"
-    else:
-        solver = ttdgl.TDGLSolver(
-            _bridge(ttdgl), _options(ttdgl, dt_max=1e-2, save_every=20),
-            terminal_currents=terminal_currents(0.0), torch_device="cpu")
-        field = "mu_boundary"
-    base = solver._initial_state()
-    s = torch.tensor(SCALES, dtype=torch.float64)
-    if field == "time":
-        # Each member at its own time, with its own A(t) in the state.
-        t0 = 0.01 * (s - s[0])
-        start = {"time": t0, "A_applied": torch.stack(
-            [solver.cfg.A_fn(t) for t in t0])}
-    else:
-        start = {field: getattr(base, field)[None] * s.reshape(
-            (3,) + (1,) * getattr(base, field).dim())}
-    per_member = ("psi_r", "psi_i", "psi", "mu", "mu_prev", "supercurrent",
-                  "normal_current", "dpsi_window")
-    batch = tsweep._member_axis(base, 3, per_member, start)
-    if solver.structured:
-        def chunk(st):
-            return solver._raw_chunk_fn(solver.sten, solver.amg, st, None)
-    else:
-        def chunk(st):
-            return solver._raw_chunk_fn(solver.op, None, solver.amg, st)
-    b_state, b_out, _ = chunk(batch)
-    for m in range(3):
-        state, out, _ = chunk(base._replace(
-            **{k: v[m] for k, v in start.items()}))
-        for name in state._fields:
-            ref = getattr(state, name)
-            got = getattr(b_state, name)
-            got = got[m] if got.dim() > ref.dim() else got
-            if not ref.is_floating_point():
-                assert torch.equal(got, ref), (m, name)
-                continue
-            # The window holds differences of |psi|^2 (<= 1): absolute.
-            scale = (1.0 if name == "dpsi_window"
-                     else max(float(ref.abs().max()), 1e-300))
-            assert float((got - ref).abs().max()) <= 1e-12 * scale, (
-                m, name)
-        # Probe potentials on the scale of mu, phases absolutely.
-        scales = dict(mu_probe=float(state.mu.abs().max()),
-                      theta_probe=1.0)
-        for name in out._fields:
-            ref = getattr(out, name)
-            got = getattr(b_out, name)[m]
-            if not ref.is_floating_point():
-                assert torch.equal(got, ref), (m, name)
-                continue
-            scale = scales.get(name, float(ref.abs().max()))
-            assert float((got - ref).abs().max()) <= 1e-12 * scale, (
-                m, name)
+# The current pair's cases of this test and of test_member_files_match_jax
+# are in test_torch_sweep_current.py.
+@pytest.mark.parametrize("pair", ["field_pair"])
+def test_sweep_matches_jax(pair, request):
+    sweep_matches_jax(request.getfixturevalue(pair))
 
 
 def test_field_sweep(field_pair):
@@ -277,42 +205,6 @@ def test_field_sweep(field_pair):
     assert len(set(result.steps.tolist())) == 3
     assert result.dynamics_dt.shape[0] == 3
     assert np.all(result.dynamics_dt >= 0)
-
-
-def test_current_sweep_callable_bias(current_pair):
-    """(c) The callable IV-like bias: the probe voltage scales with the
-    member's bias."""
-    result = current_pair["torch"][0]
-    assert result.psi.shape[0] == 3
-    assert not np.any(result.failed)
-    assert np.all(result.times >= 1.0)
-    v = np.abs(result.dynamics_mu[:, 0, :] - result.dynamics_mu[:, 1, :])
-    final_v = np.array([
-        row[np.flatnonzero(dt > 0)[-1]]
-        for row, dt in zip(v, result.dynamics_dt)
-    ])
-    assert final_v[-1] > 2.0 * final_v[0] > 0
-
-
-def test_sweep_failed_member_surfaced():
-    """(c) A member that cannot converge (fixed dt far too large) is
-    reported: raise_on_failure=True raises; False returns per-member
-    flags."""
-    device = _box(ttdgl)
-    options = ttdgl.SolverOptions(
-        solve_time=5, dt_init=0.5, dt_max=0.5, adaptive=False,
-        save_every=10, field_units="uT", current_units="uA",
-    )
-    kwargs = dict(
-        applied_vector_potential=ttdgl.ConstantField(1.0, field_units="uT"),
-        field_scales=np.linspace(100, 400, 4), max_steps=20,
-        torch_device="cpu",
-    )
-    with pytest.raises(RuntimeError, match="failed to converge"):
-        tsweep.solve_sweep(device, options, **kwargs)
-    result = tsweep.solve_sweep(device, options, raise_on_failure=False,
-                                **kwargs)
-    assert np.any(result.failed)
 
 
 def test_sweep_validation_and_unported_paths():
@@ -358,30 +250,6 @@ def test_member_devices_of_mesh_none(monkeypatch):
         torch.device("cpu")] * 2
 
 
-def plain_field(x, y, z):
-    """A uniform field's vector potential as a plain (non-Parameter)
-    callable of the edge centres."""
-    return np.stack([-0.5 * y, 0.5 * x, np.zeros_like(x)], axis=1)
-
-
-def test_member_solution_of_plain_callable_field(tmp_path):
-    """(c) A field sweep of a plain callable: each member's Solution stores
-    the callable times its scale (``ScaledApplied``) and reloads it."""
-    result = tsweep.solve_sweep(
-        _box(ttdgl), _options(ttdgl, solve_time=0.002, dt_init=1e-3,
-                              save_every=2),
-        applied_vector_potential=plain_field, field_scales=[0.5, 2.0],
-        output_dir=str(tmp_path), torch_device="cpu")
-    xyz = np.array([[1.0, 2.0, 0.0], [-3.0, 0.5, 0.0]]).T
-    for scale, sol in zip((0.5, 2.0), result.solutions):
-        reloaded = ttdgl.Solution.from_hdf5(sol.path)
-        for applied in (sol.applied_vector_potential,
-                        reloaded.applied_vector_potential):
-            assert isinstance(applied, tsweep.ScaledApplied)
-            np.testing.assert_allclose(applied(*xyz),
-                                       scale * plain_field(*xyz))
-
-
 def test_sweep_member_solutions_structured(field_pair):
     """(c) Member Solutions of the structured field sweep: the final
     fields, the analysis stack, the round trip through the loader."""
@@ -398,29 +266,6 @@ def test_sweep_member_solutions_structured(field_pair):
     moments = [abs(s.magnetic_moment(with_units=False))
                for s in result.solutions]
     assert moments[0] < 1e-6 and moments[-1] > moments[1] > moments[0]
-
-
-def test_sweep_member_solutions_ell_and_rename(current_pair, tmp_path):
-    """(c) Member Solutions of the ELL current sweep (the scaled callable
-    bias is stored), and a second sweep into the same directory is
-    serial-renamed, not lost."""
-    result = current_pair["torch"][0]
-    for b, sol in enumerate(result.solutions):
-        np.testing.assert_allclose(sol.tdgl_data.psi, result.psi[b])
-        assert len(sol.dynamics.time) == result.steps[b]
-        tc = sol.terminal_currents(0.0)
-        assert tc["source"] == pytest.approx(1.0 * result.values[b])
-        assert np.isfinite(sol.magnetic_moment(with_units=False))
-    device = result.solutions[0].device
-    kwargs = dict(terminal_currents=dict(source=1.0, drain=-1.0),
-                  current_scales=[1.0, 2.0], max_steps=40,
-                  output_dir=str(tmp_path), torch_device="cpu")
-    options = _options(ttdgl, solve_time=0.01, dt_max=1e-2)
-    first = tsweep.solve_sweep(device, options, **kwargs)
-    again = tsweep.solve_sweep(device, options, **kwargs)
-    assert len(again.solutions) == 2
-    assert again.solutions[0].path != first.solutions[0].path
-    assert again.solutions[0].path.endswith("member_000-1.h5")
 
 
 def _h5_items(path):
@@ -441,11 +286,10 @@ def _h5_items(path):
     return items
 
 
-@pytest.mark.parametrize("pair", ["field_pair", "current_pair"])
-def test_member_files_match_jax(pair, request):
+def member_files_match_jax(pair):
     """(d) Field by field under h5py, to the parity tolerance; each
     package's Solution loads the other's file."""
-    (j, _), (t, _) = request.getfixturevalue(pair).values()
+    (j, _), (t, _) = pair.values()
     for js, ts in zip(j.solutions, t.solutions):
         ji, ti = _h5_items(js.path), _h5_items(ts.path)
         assert sorted(ji) == sorted(ti)
@@ -466,6 +310,11 @@ def test_member_files_match_jax(pair, request):
         np.testing.assert_allclose(
             ttdgl.Solution.from_hdf5(js.path).tdgl_data.psi,
             js.tdgl_data.psi)
+
+
+@pytest.mark.parametrize("pair", ["field_pair"])
+def test_member_files_match_jax(pair, request):
+    member_files_match_jax(request.getfixturevalue(pair))
 
 
 def test_batched_jax_state_converts():

@@ -20,13 +20,14 @@ h5lite, the JAX package through h5py), and:
   ``snapshot``, ``convert`` and ``animate`` as ``python -m
   tdgl_tpu_torch.visualize`` runs it, one after another in one
   subprocess.
+
+This module keeps 6 of the cases, and
+``tests/test_torch_visualize_*.py`` hold the others, 7 or fewer to a
+file, so that pytest-xdist's ``--dist loadfile`` queues each file behind
+the long JAX files (ROADMAP "Test-time budget"); they import this
+module's fixtures and helpers.
 """
 
-import json
-import os
-import subprocess
-import sys
-import textwrap
 
 import h5py
 import numpy as np
@@ -38,11 +39,11 @@ import tdgl_tpu as jtdgl
 import tdgl_tpu.visualization as jvis
 import tdgl_tpu_torch as ttdgl
 import tdgl_tpu_torch.visualization as tvis
+from tdgl_tpu_torch import testing
 from tdgl_tpu_torch.utils import h5lite
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-12
 WRITERS = ("torch", "jax")
 
@@ -70,23 +71,30 @@ def _device(pkg):
 @pytest.fixture(scope="module")
 def solved(tmp_path_factory):
     """``{writer: (path, {reader: Solution})}``: each package's output
-    file, loaded by both packages."""
-    paths = {}
-    for name, pkg, kw in (("torch", ttdgl, {"torch_device": "cpu"}),
-                          ("jax", jtdgl, {})):
-        path = str(tmp_path_factory.mktemp(f"vis_{name}") / "out.h5")
-        solution = pkg.solve(
-            _device(pkg),
-            pkg.SolverOptions(solve_time=0.1, dt_init=1e-3, adaptive=False,
-                              save_every=25, dtype="float64",
-                              output_file=path, field_units="mT",
-                              current_units="uA"),
-            applied_vector_potential=0.5,
-            terminal_currents=dict(source=5.0, drain=-5.0), **kw)
-        paths[name] = solution.path
-    return {writer: (path, {"torch": ttdgl.Solution.from_hdf5(path),
-                            "jax": jtdgl.Solution.from_hdf5(path)})
-            for writer, path in paths.items()}
+    file, loaded by both packages. A writer's solve runs once per session,
+    where a test first reads it (``testing.PerKey``), and the files of
+    ``tests/test_torch_visualize*.py`` share its output file
+    (``testing.session_file``)."""
+    def solve(writer):
+        pkg, kw = {"torch": (ttdgl, {"torch_device": "cpu"}),
+                   "jax": (jtdgl, {})}[writer]
+
+        def write(path):
+            pkg.solve(
+                _device(pkg),
+                pkg.SolverOptions(solve_time=0.1, dt_init=1e-3,
+                                  adaptive=False, save_every=25,
+                                  dtype="float64", output_file=path,
+                                  field_units="mT", current_units="uA"),
+                applied_vector_potential=0.5,
+                terminal_currents=dict(source=5.0, drain=-5.0), **kw)
+
+        path = testing.session_file(tmp_path_factory, f"vis_{writer}.h5",
+                                    write)
+        return path, {"torch": ttdgl.Solution.from_hdf5(path),
+                      "jax": jtdgl.Solution.from_hdf5(path)}
+
+    return testing.PerKey(solve)
 
 
 def _close(a, b, what):
@@ -180,9 +188,16 @@ PLOTS = [
 ]
 
 
-@pytest.mark.parametrize("writer", WRITERS)
-@pytest.mark.parametrize("name,draw", PLOTS, ids=[p[0] for p in PLOTS])
-def test_plot_functions(solved, writer, name, draw):
+# The plot functions and the methods, each on either writer's file, are
+# the cases of ``test_plot_functions`` in test_torch_visualize_plots_*.py
+# and test_torch_visualize_methods_*.py.
+PLOT_FUNCTIONS = PLOTS[:6]
+PLOT_METHODS = PLOTS[6:]
+
+
+def same_plot(solved, writer, name, draw):
+    """Both packages draw ``name`` from ``writer``'s file: the same
+    artists (``_same_figures``)."""
     _, sols = solved[writer]
     with ttdgl.non_gui_backend(), jtdgl.non_gui_backend():
         ours = draw(ttdgl, sols["torch"])[0]
@@ -219,89 +234,6 @@ def test_current_through_paths(solved, writer):
 
 
 @pytest.mark.parametrize("writer", WRITERS)
-def test_generate_snapshots(solved, writer):
-    path, _ = solved[writer]
-    kw = dict(times=[0.0, 0.05, 1.0], quantities=["order_parameter",
-                                                   "supercurrent", "vorticity"],
-              axis_labels=True)
-    with tvis.non_gui_backend():
-        ours = tvis.generate_snapshots(path, **kw)
-        theirs = jvis.generate_snapshots(path, **kw)
-        assert len(ours) == len(theirs) == 3
-        for i, ((fa, _), (fb, _)) in enumerate(zip(ours, theirs)):
-            _same_figures(fa, fb, ("snapshot", i))
-
-
-@pytest.mark.parametrize("writer", WRITERS)
-def test_create_animation(solved, writer, tmp_path):
-    path, _ = solved[writer]
-    figs = []
-    for vis, tag in ((tvis, "t"), (jvis, "j")):
-        out = str(tmp_path / f"{tag}.gif")
-        anim = vis.create_animation(
-            path, output_file=out, quantities=["order_parameter", "phase"],
-            fps=10, min_frame=1, max_frame=3, full_title=False, silent=True)
-        assert os.path.getsize(out) > 0
-        figs.append(anim._fig)
-    _same_figures(*figs, "animation's last frame")
-
-
-def _press_all(plot, f, keys):
-    """Build ``plot`` on ``f``, press ``keys`` and record the frame, the
-    quantity and every collection's array after each."""
-    import matplotlib.pyplot as plt
-    from matplotlib.backend_bases import KeyEvent
-
-    fig = plot._build(f)
-    colls = getattr(plot, "_collections", None) or [plot._pc]
-    out = []
-    for key in keys:
-        plot._on_key(KeyEvent("key_press_event", fig.canvas, key))
-        out.append((plot._frames.current,
-                    getattr(plot, "quantity", None),
-                    [np.array(c.get_array()) for c in colls]))
-    plt.close(fig)
-    return out
-
-
-KEYS = {
-    "InteractivePlot": ["right", "left", "left", "end", "up", "home",
-                        "shift+right", "shift+left", "up", "down", "shift+up",
-                        "shift+down", "3", "right", "9", "5", "1"],
-    "MultiInteractivePlot": ["right", "left", "left", "end", "up", "home",
-                             "shift+right"],
-}
-
-
-@pytest.mark.parametrize("writer", WRITERS)
-@pytest.mark.parametrize("kind", ["InteractivePlot", "MultiInteractivePlot"])
-def test_interactive_key_events(solved, writer, kind):
-    """The key sequence of ``tests/test_visualize.py:122,176`` (frame jumps
-    clipped to the file's range, number keys selecting the quantity)
-    moves both packages' plots through the same frames and arrays."""
-    path, _ = solved[writer]
-    with tvis.non_gui_backend():
-        with h5lite.File(path, "r") as f:
-            ours = _press_all(getattr(tvis, kind)(path), f, KEYS[kind])
-        with h5py.File(path, "r") as f:
-            theirs = _press_all(getattr(jvis, kind)(path), f, KEYS[kind])
-    frames = [o[0] for o in ours]
-    assert frames == [o[0] for o in theirs]
-    assert frames[:6] == [1, 0, 0, 5, 5, 0]
-    for (_, qa, aa), (_, qb, ab) in zip(ours, theirs):
-        assert (qa and qa.name) == (qb and qb.name)
-        for a, b in zip(aa, ab):
-            _close(a, b, kind)
-    if kind == "InteractivePlot":
-        assert [o[1].name for o in ours[-5:]] == [
-            "SUPERCURRENT", "SUPERCURRENT", "VORTICITY", "SCALAR_POTENTIAL",
-            "ORDER_PARAMETER"]
-        assert not np.array_equal(ours[11][2][0], ours[12][2][0])
-    else:
-        assert not np.array_equal(ours[5][2][0], ours[6][2][0])
-
-
-@pytest.mark.parametrize("writer", WRITERS)
 def test_convert_to_xdmf(solved, writer, tmp_path):
     path, _ = solved[writer]
     ours = tvis.convert_to_xdmf(path, str(tmp_path / "t.xdmf"))
@@ -320,91 +252,3 @@ def test_convert_to_xdmf(solved, writer, tmp_path):
                 assert a[name].dtype == b[name].dtype, name
                 _close(a[name][()], b[name][()], name)
     assert sum(n.startswith("frame_") and "/" not in n for n in names) == 6
-
-
-# -- the CLI, each command run as ``python -m`` runs it, in one subprocess --
-CLI = {
-    "help": ["--help"],
-    "snapshot": ["snapshot", "--times", "0.05", "0.1"],
-    "convert": ["--output", "{tmp}/cli.xdmf", "convert"],
-    "animate": ["--output", "{tmp}/cli.gif", "animate", "--fps", "10",
-                "--max-frame", "3"],
-}
-
-# Runs ``python -m tdgl_tpu_torch.visualize <args>`` for each command in
-# turn (``runpy``, as ``-m`` does), capturing its exit code, stdout and
-# stderr; prints them as JSON.
-_CLI_RUNNER = textwrap.dedent("""
-    import contextlib
-    import io
-    import json
-    import runpy
-    import sys
-    import traceback
-
-    results = {}
-    for name, argv in json.loads(sys.argv[1]).items():
-        out, err = io.StringIO(), io.StringIO()
-        sys.argv = ["tdgl_tpu_torch.visualize"] + argv
-        code = 0
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            try:
-                runpy.run_module("tdgl_tpu_torch.visualize",
-                                 run_name="__main__", alter_sys=True)
-            except SystemExit as exc:
-                code = (exc.code if isinstance(exc.code, int)
-                        else int(exc.code is not None))
-            except BaseException:
-                traceback.print_exc()
-                code = 1
-        results[name] = (code, out.getvalue(), err.getvalue())
-    print(json.dumps(results))
-""")
-
-
-@pytest.fixture(scope="module")
-def cli_runs(solved, tmp_path_factory):
-    tmp = str(tmp_path_factory.mktemp("cli"))
-    path, _ = solved["torch"]
-    env = dict(os.environ, MPLBACKEND="Agg", PYTHONPATH=ROOT,
-               OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
-    commands = {name: ([] if name == "help" else ["--input", path])
-                + [a.format(tmp=tmp) for a in args]
-                for name, args in CLI.items()}
-    proc = subprocess.run(
-        [sys.executable, "-c", _CLI_RUNNER, json.dumps(commands)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    out = {name: tuple(v) for name, v in
-           json.loads(proc.stdout.strip().splitlines()[-1]).items()}
-    return tmp, path, out
-
-
-def test_cli_help(cli_runs):
-    rc, stdout, _ = cli_runs[2]["help"]
-    assert rc == 0
-    for cmd in ("interactive", "animate", "monitor", "convert", "snapshot"):
-        assert cmd in stdout
-
-
-def test_cli_snapshot(cli_runs):
-    _, path, out = cli_runs
-    assert out["snapshot"][0] == 0, out["snapshot"][2]
-    for t in (0.05, 0.1):
-        assert os.path.getsize(path.replace(".h5", "") + f"_t{t:.1f}.png")
-
-
-def test_cli_convert(cli_runs):
-    tmp, _, out = cli_runs
-    assert out["convert"][0] == 0, out["convert"][2]
-    with open(os.path.join(tmp, "cli.xdmf")) as f:
-        text = f.read()
-    assert "Xdmf" in text and "TimeSeries" in text
-    with h5py.File(os.path.join(tmp, "cli.xdmf.h5"), "r") as f:
-        assert "frame_5/order_parameter" in f
-
-
-def test_cli_animate(cli_runs):
-    tmp, _, out = cli_runs
-    assert out["animate"][0] == 0, out["animate"][2]
-    assert os.path.getsize(os.path.join(tmp, "cli.gif"))
